@@ -1,0 +1,25 @@
+"""circuitscape_tpu_torch — the PyTorch/CUDA port of circuitscape_tpu.
+
+Runs circuit-theory connectivity jobs (effective resistances between
+focal points of a conductance raster) on an NVIDIA GPU.  Plain tensor
+work is PyTorch; the stencil kernels of the preconditioned CG solve are
+hand-written CUDA C++ (csrc/, built with nvcc on first use).  It imports
+neither JAX nor the circuitscape_tpu package.
+
+This package carries raster pairwise in shortcut mode (no maps, no
+polygons, solver = cg+amg); other scenarios raise NotImplementedError
+naming their ROADMAP item.
+
+Public API mirrors the reference:
+    compute(path_or_dict, device=None) -> run a job from an INI file or
+        config dict on `device` (default: CUDA; pass device="cpu" to run
+        on the CPU)
+"""
+
+from .config import CSConfig, init_config, parse_config, write_config
+from .run import compute
+
+__version__ = "0.1.0"
+
+__all__ = ["compute", "CSConfig", "parse_config", "init_config",
+           "write_config"]

@@ -1,0 +1,147 @@
+"""Graph construction: node maps, polygon collapse, stencil graph assembly,
+Laplacian.
+
+Parity reference: src/raster/pairwise.jl:271-362 (construct_node_map,
+relabel!, construct_graph), src/core.jl:608-634 (laplacian!).
+
+Counterpart of circuitscape_tpu/graph/build.py; create_new_polymap (the
+per-pair focal-region map) comes with focal regions (ROADMAP queue 1
+item 7), components with the general-graph tier (item 9).
+
+Design notes: the raster-to-graph step is a stencil, so edge assembly is
+done with whole-array shifted-plane operations (4 directed neighbor
+planes), not per-cell pushes.  The resulting COO triples feed a scipy
+CSR on the host; the port's solve path never needs it (the stencil
+planes build on the device, solve/stencil.py), so LazyStencilGraph only
+materializes it on demand.
+
+Conventions: node maps use 0 = "no node" and 1-based node ids numbered in
+column-major order, exactly like the reference, so unit tests and output
+orderings line up.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+
+
+# Edge-weight rules (src/raster/pairwise.jl:364-367)
+def res_avg(x, y):
+    return 1.0 / ((1.0 / x + 1.0 / y) / 2.0)
+
+
+def cond_avg(x, y):
+    return (x + y) / 2.0
+
+
+def weird_avg(x, y):
+    return (x + y) / (2.0 * np.sqrt(2.0))
+
+
+def weirder_avg(x, y):
+    return 1.0 / (np.sqrt(2.0) * (1.0 / x + 1.0 / y) / 2.0)
+
+
+def construct_node_map(gmap: np.ndarray, polymap: np.ndarray) -> np.ndarray:
+    """Number occupied cells 1..n (column-major), collapsing polygons
+    (src/raster/pairwise.jl:271-301)."""
+    nodemap = np.zeros(gmap.shape, np.int64)
+    ind = gmap > 0
+    # column-major sequential numbering
+    nm_t = nodemap.T
+    nm_t[ind.T] = np.arange(1, int(ind.sum()) + 1)
+
+    if polymap.size == 0:
+        return nodemap
+
+    polymap_pruned = np.zeros(gmap.shape, np.int64)
+    polymap_pruned[ind] = polymap[ind]
+
+    # unique polygon ids in column-major first-appearance order
+    seen = {}
+    for v in polymap.T.ravel():
+        if v != 0 and v not in seen:
+            seen[v] = True
+    for polynum in seen:
+        idx1 = polymap_pruned.T == polynum
+        idx2 = polymap.T == polynum
+        if idx1.any():
+            first = nodemap.T[idx1].flat[0]
+            nodemap.T[idx2] = first
+    relabel(nodemap, 1)
+    return nodemap
+
+
+def relabel(nodemap: np.ndarray, offset: int = 0) -> None:
+    """Densely renumber nonzero labels by rank, in place
+    (src/raster/pairwise.jl:303-314)."""
+    mask = nodemap != 0
+    vals = nodemap[mask]
+    uniq, inv = np.unique(vals, return_inverse=True)
+    nodemap[mask] = inv + offset
+
+
+def construct_graph(gmap: np.ndarray, nodemap: np.ndarray, avg_res: bool,
+                    four_neighbors: bool) -> sp.csr_matrix:
+    """Assemble the neighbor-stencil conductance graph
+    (src/raster/pairwise.jl:316-362).
+
+    Vectorized: each of the 4 directed neighbor offsets (E, S, SE, NE)
+    contributes one shifted-plane batch of edges.  Duplicate (i, j)
+    entries (collapsed polygon nodes) are summed, as in sparse().
+    """
+    f1 = res_avg if avg_res else cond_avg
+    f2 = weirder_avg if avg_res else weird_avg
+
+    rows_i = []
+    rows_j = []
+    vals = []
+
+    def add_edges(src_sl, dst_sl, fn):
+        nm_src = nodemap[src_sl]
+        nm_dst = nodemap[dst_sl]
+        mask = (nm_src != 0) & (nm_dst != 0)
+        if not mask.any():
+            return
+        rows_i.append(nm_src[mask])
+        rows_j.append(nm_dst[mask])
+        # gmap can be 0 under a polygon-collapsed node; inf-conductance
+        # averages resolve exactly like the reference's 1/0 arithmetic
+        with np.errstate(divide="ignore"):
+            vals.append(fn(gmap[src_sl][mask], gmap[dst_sl][mask]))
+
+    # Horizontal neighbor: (i, j) -- (i, j+1)
+    add_edges(np.s_[:, :-1], np.s_[:, 1:], f1)
+    # Vertical neighbor: (i, j) -- (i+1, j)
+    add_edges(np.s_[:-1, :], np.s_[1:, :], f1)
+    if not four_neighbors:
+        # Diagonal: (i, j) -- (i+1, j+1)
+        add_edges(np.s_[:-1, :-1], np.s_[1:, 1:], f2)
+        # Anti-diagonal: (i, j) -- (i-1, j+1)
+        add_edges(np.s_[1:, :-1], np.s_[:-1, 1:], f2)
+
+    m = int(nodemap.max())
+    if rows_i:
+        I = np.concatenate(rows_i) - 1
+        J = np.concatenate(rows_j) - 1
+        V = np.concatenate(vals)
+    else:
+        I = J = np.zeros(0, np.int64)
+        V = np.zeros(0, gmap.dtype)
+    a = sp.coo_matrix((V.astype(gmap.dtype), (I, J)), shape=(m, m)).tocsr()
+    a = (a + a.T).tocsr()
+    a.sum_duplicates()
+    return a
+
+
+def laplacian(a: sp.spmatrix) -> sp.csr_matrix:
+    """Graph Laplacian from (possibly self-looped) adjacency
+    (src/core.jl:608-634): diagonal entries dropped, off-diagonals negated,
+    diagonal = off-diagonal column sums."""
+    a = a.tocsr()
+    d = a.diagonal()
+    offdiag = a - sp.diags(d)
+    s = np.asarray(offdiag.sum(axis=0)).ravel()
+    L = sp.diags(s) - offdiag
+    return L.tocsr()

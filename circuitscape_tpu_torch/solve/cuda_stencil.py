@@ -1,0 +1,262 @@
+"""Hand-written CUDA kernels of the stencil solve, and their plain versions.
+
+Counterpart of circuitscape_tpu/solve/pallas_stencil.py.  Four kernels,
+all float32 on (B, H, W) blocks with zero-fill grid boundaries, compiled
+by nvcc for sm_90a from csrc/stencil_kernels.cu into a shared library
+with a plain C interface, loaded with ctypes on first use:
+
+  matvec            y = L x                       (replaces pallas_matvec)
+  matvec_pap        y = L x, pAp[b] = sum x.y     (pallas_matvec_pap)
+  cheb_step         r' = r - L d; d' = ca d + cb Dinv r'; x' = x + d'
+                                                  (pallas_cheb_step)
+  residual_restrict rc = 2x2 patch sums of b - L x (pallas_residual_restrict)
+
+All four are bound by memory bytes: per cell and column they do ~20
+flops against >= 8 bytes, far below the card's flop:byte ratio.  The
+design moves each byte once.  A thread owns one cell (residual_restrict:
+one 2x2 coarse patch), loads that cell's nine weights from the five base
+planes into registers once, and then loops over the batch, so plane
+bytes are read once per launch rather than once per column (the TPU
+kernel got the same reuse from its batch-fastest grid).  Neighbour reads
+of x go through L1, where the adjacent threads of the tile have already
+brought them.  Unlike the TPU kernels, which read nine pre-shifted plane
+copies to avoid unaligned shifts, these read the five base planes at
+neighbour offsets: 5 instead of 9 plane bytes per cell.
+
+Each wrapper takes CPU tensors to its plain-torch version (the tests run
+there) and CUDA tensors to its kernel; on a CUDA tensor it launches the
+kernel or raises, never falls back.  LAUNCHES counts kernel launches per
+wrapper (plain calls do not count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .stencil import StencilOperator, stencil_matvec
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# launches per wrapper, for showing that a run went through the kernels
+LAUNCHES = {"matvec": 0, "matvec_pap": 0, "cheb_step": 0,
+            "residual_restrict": 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # planes (we, ws, wse, wne, diag), then the function's own tensors,
+    # then B, H, W and the stream
+    "cs_matvec": [_P] * 5 + [_P, _P] + [_I] * 3 + [_P],
+    "cs_matvec_pap": [_P] * 5 + [_P, _P, _P] + [_I] * 3 + [_P],
+    "cs_cheb_step": ([_P] * 5 + [_P] * 7 + [_F, _F] + [_I] * 3 + [_P]),
+    "cs_residual_restrict": [_P] * 5 + [_P, _P, _P] + [_I] * 3 + [_P],
+    "cs_matvec_pap_blocks": [_I, _I],
+}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "circuitscape_tpu_torch build on first use and "
+                           "need the CUDA toolkit")
+    return path
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into build/kernels/ (keyed on a hash of the
+    sources and flags) unless that library exists; returns its path."""
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    lib = BUILD_DIR / f"libcs_stencil_{h.hexdigest()[:16]}.so"
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" +
+                               res.stdout + res.stderr)
+        os.replace(tmp, lib)
+    return lib
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(A: StencilOperator, *blocks: torch.Tensor, extra_planes=()):
+    """The kernels take contiguous float32 CUDA tensors on one device:
+    planes (H, W) (the operator's five and extra_planes), blocks
+    (B, H, W) with B >= 1."""
+    dev = A.diag.device
+    H, W = A.shape
+    for p in A.planes + tuple(extra_planes):
+        if (p.device != dev or p.dtype != torch.float32 or
+                not p.is_contiguous() or tuple(p.shape) != (H, W)):
+            raise ValueError("stencil kernels need five contiguous float32 "
+                             f"(H, W) planes on one device, got {p.dtype} "
+                             f"{tuple(p.shape)} on {p.device}")
+    for t in blocks:
+        if (t.device != dev or t.dtype != torch.float32 or
+                not t.is_contiguous() or t.dim() != 3 or t.shape[0] < 1 or
+                tuple(t.shape[1:]) != (H, W)):
+            raise ValueError("stencil kernels need contiguous float32 "
+                             f"(B>=1, {H}, {W}) blocks on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _stream(dev: torch.device):
+    """The current stream of dev, which must be the current device (the
+    C functions launch in the current device's context)."""
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"stencil kernels launch on the current CUDA "
+                         f"device ({torch.cuda.current_device()}); the "
+                         f"tensors are on {dev}")
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _raise_if(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+# --- plain versions (CPU path, and the oracle the kernels are held to) ---
+
+def matvec_plain(A: StencilOperator, x: torch.Tensor) -> torch.Tensor:
+    return stencil_matvec(A, x)
+
+
+def matvec_pap_plain(A: StencilOperator, x: torch.Tensor):
+    y = stencil_matvec(A, x)
+    return y, torch.sum(x * y, dim=(-2, -1))
+
+
+def cheb_step_plain(A: StencilOperator, dinv, r, d, x, ca: float,
+                    cb: float):
+    r = r - stencil_matvec(A, d)
+    d = ca * d + cb * (dinv[None] * r)
+    return r, d, x + d
+
+
+def residual_restrict_plain(A: StencilOperator, b, x):
+    from .geomg import _restrict
+    return _restrict(b - stencil_matvec(A, x))
+
+
+# --- kernel wrappers ------------------------------------------------------
+
+def matvec(A: StencilOperator, x: torch.Tensor) -> torch.Tensor:
+    """y = L x for x (B, H, W).  Replaces pallas_stencil.pallas_matvec
+    (circuitscape_tpu/solve/pallas_stencil.py:899); bound by bytes."""
+    if not x.is_cuda:
+        return matvec_plain(A, x)
+    _check(A, x)
+    lib = _load()
+    y = torch.empty_like(x)
+    B, H, W = x.shape
+    _raise_if(lib.cs_matvec(*map(_ptr, A.planes), _ptr(x), _ptr(y),
+                            B, H, W, _stream(x.device)), "matvec")
+    LAUNCHES["matvec"] += 1
+    return y
+
+
+def matvec_pap(A: StencilOperator, x: torch.Tensor):
+    """(L x, per-column x . L x) in one pass.  Replaces
+    pallas_stencil.pallas_matvec_pap (pallas_stencil.py:855); bound by
+    bytes.  Each thread block writes one partial dot per column to a
+    scratch tensor, summed here in a fixed order (no float atomics), as
+    the JAX wrapper sums its per-slab partials."""
+    if not x.is_cuda:
+        return matvec_pap_plain(A, x)
+    _check(A, x)
+    lib = _load()
+    B, H, W = x.shape
+    y = torch.empty_like(x)
+    part = torch.empty((B, lib.cs_matvec_pap_blocks(H, W)),
+                       dtype=torch.float32, device=x.device)
+    _raise_if(lib.cs_matvec_pap(*map(_ptr, A.planes), _ptr(x), _ptr(y),
+                                _ptr(part), B, H, W, _stream(x.device)),
+              "matvec_pap")
+    LAUNCHES["matvec_pap"] += 1
+    return y, part.sum(dim=1)
+
+
+def cheb_step(A: StencilOperator, dinv: torch.Tensor, r, d, x, ca: float,
+              cb: float):
+    """One Chebyshev recurrence step in one pass: returns
+    (r - L d, ca*d + cb*Dinv*(r - L d), x + d').  Replaces
+    pallas_stencil.pallas_cheb_step (pallas_stencil.py:340); bound by
+    bytes (3 blocks in, 3 out)."""
+    if not r.is_cuda:
+        return cheb_step_plain(A, dinv, r, d, x, ca, cb)
+    _check(A, r, d, x, extra_planes=(dinv,))
+    lib = _load()
+    B, H, W = r.shape
+    ro, do, xo = (torch.empty_like(r) for _ in range(3))
+    _raise_if(lib.cs_cheb_step(*map(_ptr, A.planes), _ptr(dinv), _ptr(r),
+                               _ptr(d), _ptr(x), _ptr(ro), _ptr(do),
+                               _ptr(xo), ca, cb, B, H, W,
+                               _stream(r.device)),
+              "cheb_step")
+    LAUNCHES["cheb_step"] += 1
+    return ro, do, xo
+
+
+def residual_restrict(A: StencilOperator, b: torch.Tensor, x: torch.Tensor):
+    """restrict(b - L x): the 2x2 patch sums of the residual, output
+    (B, ceil(H/2), ceil(W/2)); odd H or W restrict as if zero-padded,
+    exactly as geomg._restrict.  Replaces
+    pallas_stencil.pallas_residual_restrict (pallas_stencil.py:760),
+    which the TPU gates to even H and W % 256 == 0; bound by bytes (the
+    full-size residual is never written)."""
+    if not x.is_cuda:
+        return residual_restrict_plain(A, b, x)
+    _check(A, b, x)
+    lib = _load()
+    B, H, W = x.shape
+    rc = torch.empty((B, -(-H // 2), -(-W // 2)), dtype=torch.float32,
+                     device=x.device)
+    _raise_if(lib.cs_residual_restrict(*map(_ptr, A.planes), _ptr(b),
+                                       _ptr(x), _ptr(rc), B, H, W,
+                                       _stream(x.device)),
+              "residual_restrict")
+    LAUNCHES["residual_restrict"] += 1
+    return rc

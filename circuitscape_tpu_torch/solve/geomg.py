@@ -1,0 +1,298 @@
+"""Geometric multigrid preconditioner for the stencil operator, in torch.
+
+Counterpart of circuitscape_tpu/solve/geomg.py (the device-build path
+and the V-cycle).  Every level stays a 9-point stencil, so the V-cycle
+is shifted-plane arithmetic plus 2x2 patch reductions.
+
+Coarsening is Galerkin with a piecewise-constant 2x2-patch prolongator.
+For a graph Laplacian that collapses exactly to the Laplacian of the
+patch-collapsed graph: each fine directed edge either stays inside a
+patch (vanishes) or adds its weight to one coarse directed edge chosen
+by the parity of its endpoint coordinates.  The hierarchy builds on the
+device in float32; the coarsest level's dense pseudo-inverse builds on
+the host in float64.
+
+Smoother: degree-2 Chebyshev on D^-1 A, symmetric V(1,1), so the cycle
+is a valid SPD preconditioner for CG.  Its fine work runs in the
+hand-written kernels of solve/cuda_stencil.py: the generic fused
+Chebyshev step, the matvec, and the fused residual + restrict, on every
+level.  (The JAX package also has a premultiplied-plane configuration
+of the same smoother; the two differ only in rounding.)
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .cuda_stencil import cheb_step, matvec, residual_restrict
+from .stencil import StencilOperator, _sh, operator_from_numpy, \
+    stencil_matvec
+
+
+@dataclass
+class GeoMgLevel:
+    A: StencilOperator
+    inv_diag: torch.Tensor  # (H, W) plain 1/diag (0 on empty cells)
+    lam_max: float          # estimate of rho(D^-1 A) for Chebyshev
+
+
+@dataclass
+class GeoMgHierarchy:
+    levels: tuple
+    coarse_pinv: torch.Tensor  # (hc*wc, hc*wc)
+    coarse_shape: tuple
+    overcorrect: float = 1.9   # coarse-correction scaling
+
+
+def _sym_pinv(A: np.ndarray) -> np.ndarray:
+    """Pseudo-inverse of a symmetric PSD matrix via eigh."""
+    w, V = np.linalg.eigh(A)
+    cutoff = max(A.shape) * np.finfo(A.dtype).eps * np.max(np.abs(w))
+    inv_w = np.where(w > cutoff, 1.0 / np.where(w == 0, 1.0, w), 0.0)
+    return (V * inv_w) @ V.T
+
+
+def _dense_laplacian(we, ws, wse, wne) -> np.ndarray:
+    H, W = we.shape
+    n = H * W
+    A = np.zeros((n, n))
+
+    def add(i, j, di, dj, w):
+        a = i * W + j
+        b = (i + di) * W + (j + dj)
+        A[a, b] -= w
+        A[b, a] -= w
+        A[a, a] += w
+        A[b, b] += w
+
+    for i in range(H):
+        for j in range(W):
+            if j + 1 < W and we[i, j]:
+                add(i, j, 0, 1, we[i, j])
+            if i + 1 < H and ws[i, j]:
+                add(i, j, 1, 0, ws[i, j])
+            if i + 1 < H and j + 1 < W and wse[i, j]:
+                add(i, j, 1, 1, wse[i, j])
+            if i - 1 >= 0 and j + 1 < W and wne[i, j]:
+                add(i, j, -1, 1, wne[i, j])
+    return A
+
+
+def _coarsen_planes_torch(we, ws, wse, wne):
+    """One 2x2 Galerkin coarsening step on the device (counterpart of
+    geomg._coarsen_planes_jnp): odd dims pad with a zero row/column, and
+    each fine edge routes to a coarse plane by endpoint parity."""
+    H, W = we.shape
+    if H % 2 or W % 2:
+        pads = (0, W % 2, 0, H % 2)
+        we, ws, wse, wne = (F.pad(p, pads) for p in (we, ws, wse, wne))
+        H, W = we.shape
+    hc, wc = H // 2, W // 2
+
+    def patch(ip, jp, p):
+        return p[ip::2, jp::2][:hc, :wc]
+
+    cE = patch(0, 1, we) + patch(1, 1, we) + patch(0, 1, wse) + \
+        patch(1, 1, wne)
+    cS = patch(1, 0, ws) + patch(1, 1, ws) + patch(1, 0, wse)
+    cSE = patch(1, 1, wse).clone()
+    cNE = patch(0, 1, wne).clone()
+    # N edges from even-even NE entries land on the UPPER patch's S plane
+    n_up = patch(0, 0, wne)
+    cS[:-1, :] += n_up[1:, :]
+
+    # zero the out-of-range boundaries
+    cE[:, -1] = 0
+    cS[-1, :] = 0
+    cSE[-1, :] = 0
+    cSE[:, -1] = 0
+    cNE[0, :] = 0
+    cNE[:, -1] = 0
+    return cE, cS, cSE, cNE
+
+
+def _diag_from_planes_torch(we, ws, wse, wne):
+    """Laplacian diagonal from the four directed planes (counterpart of
+    geomg._diag_from_planes_jnp)."""
+    return (we + _sh(we[None], 0, 1)[0] +
+            ws + _sh(ws[None], 1, 0)[0] +
+            wse + _sh(wse[None], 1, 1)[0] +
+            wne + _sh(wne[None], -1, 1)[0])
+
+
+def _lam_device(A: StencilOperator, inv, iters=12) -> torch.Tensor:
+    """Power iteration for rho(D^-1 A) from a deterministic
+    non-eigenvector start (the JAX package's sin(0.37 k) start); a
+    0-d device tensor, so a whole build fetches its lams at once."""
+    H, W = A.shape
+    dt = A.diag.dtype
+    x = (torch.sin(torch.arange(H * W, dtype=dt, device=A.diag.device) *
+                   0.37).reshape(1, H, W) + 0.01)
+    x = x / torch.sqrt(torch.sum(x * x))
+    lam = torch.tensor(2.0, dtype=dt, device=A.diag.device)
+    for _ in range(iters):
+        y = inv[None] * stencil_matvec(A, x)
+        n = torch.sqrt(torch.sum(y * y))
+        lam = torch.where(n == 0, torch.tensor(2.0, dtype=dt,
+                                               device=n.device), n)
+        x = y / (n + 1e-30)
+    return torch.minimum(lam * 1.05, torch.tensor(2.0, dtype=dt,
+                                                  device=lam.device))
+
+
+def _build_levels_device(we, ws, wse, wne, nlevels, est_mask):
+    """Per-level coarsening, diagonals and Chebyshev lam estimates on
+    the device.  Returns ([(A, inv_diag)] per level, lams (nlevels,)
+    device tensor or None, coarsest (we, ws, wse, wne))."""
+    out, lams = [], []
+    for lvl in range(nlevels):
+        diag = _diag_from_planes_torch(we, ws, wse, wne)
+        inv = torch.where(diag > 0,
+                          1.0 / torch.where(diag == 0, 1.0, diag), 0.0)
+        A = StencilOperator(*(p.contiguous()
+                              for p in (we, ws, wse, wne, diag)))
+        lams.append(_lam_device(A, inv) if est_mask[lvl] else
+                    torch.tensor(2.0, dtype=diag.dtype, device=diag.device))
+        out.append((A, inv.contiguous()))
+        we, ws, wse, wne = _coarsen_planes_torch(we, ws, wse, wne)
+    return out, torch.stack(lams) if lams else None, (we, ws, wse, wne)
+
+
+def build_geo_mg_device(S32: StencilOperator, coarse_cells=256,
+                        max_levels=12) -> GeoMgHierarchy:
+    """Hierarchy setup on the device from the (already uploaded) f32
+    fine operator; only the per-level lams and the tiny coarsest planes
+    (<= coarse_cells) go to the host, where the dense pseudo-inverse
+    builds in f64.
+
+    Levels above 64k cells use the Gershgorin-safe lam = 2.0 (for a
+    graph Laplacian rho(D^-1 L) <= 2); smaller levels power-iterate."""
+    shapes = []
+    H, W = S32.shape
+    while (H * W > coarse_cells and len(shapes) < max_levels and
+           min(H, W) >= 2):
+        shapes.append((H, W))
+        H, W = -(-H // 2), -(-W // 2)
+    est_mask = tuple(h * w <= 65536 for (h, w) in shapes)
+
+    levels_raw, lams_dev, coarsest = _build_levels_device(
+        S32.we, S32.ws, S32.wse, S32.wne, len(shapes), est_mask)
+    # one host fetch for the lams and the coarsest planes
+    packed = torch.cat(
+        ([lams_dev.to(torch.float64)] if lams_dev is not None else []) +
+        [torch.stack(coarsest).to(torch.float64).ravel()]).cpu().numpy()
+    lams = packed[:len(shapes)]
+    levels = tuple(GeoMgLevel(A, inv, float(lam))
+                   for (A, inv), lam in zip(levels_raw, lams))
+
+    hc, wc = coarsest[0].shape
+    cwe, cws, cwse, cwne = packed[len(shapes):].reshape(4, hc, wc)
+    dense = _dense_laplacian(cwe, cws, cwse, cwne)
+    # benign identity on empty (all-inactive) coarse cells
+    empty = dense.diagonal() == 0
+    dense[empty, empty] = 1.0
+    pinv = torch.as_tensor(_sym_pinv(dense), dtype=S32.diag.dtype,
+                           device=S32.diag.device)
+    return GeoMgHierarchy(levels, pinv, (hc, wc), 1.9)
+
+
+def from_jax_numpy(levels, coarse_pinv, coarse_shape, overcorrect=1.9,
+                   device="cpu", dtype=torch.float32) -> GeoMgHierarchy:
+    """A hierarchy carried across from the JAX package as numpy arrays.
+
+    levels: one mapping per level with keys we, ws, wse, wne, diag,
+    inv_diag (host arrays) and lam_max (float); coarse_pinv:
+    (hc*wc, hc*wc); coarse_shape: (hc, wc).  Lets a test run this
+    package's V-cycle on exactly the JAX package's hierarchy."""
+    lv = tuple(
+        GeoMgLevel(
+            operator_from_numpy([L[k] for k in ("we", "ws", "wse", "wne",
+                                                "diag")], dtype, device),
+            torch.as_tensor(np.array(L["inv_diag"]),
+                            dtype=dtype, device=device),
+            float(L["lam_max"]))
+        for L in levels)
+    pinv = torch.as_tensor(np.array(coarse_pinv), dtype=dtype,
+                           device=device)
+    return GeoMgHierarchy(lv, pinv, tuple(int(s) for s in coarse_shape),
+                          float(overcorrect))
+
+
+def _restrict(r: torch.Tensor) -> torch.Tensor:
+    """2x2 patch sum (P^T); pads odd dims with zero."""
+    B, H, W = r.shape
+    if H % 2 or W % 2:
+        r = F.pad(r, (0, W % 2, 0, H % 2))
+        H, W = r.shape[-2:]
+    return r.reshape(B, H // 2, 2, W // 2, 2).sum(dim=(2, 4))
+
+
+def _prolong(xc: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Piecewise-constant interpolation (P); crops padded dims."""
+    up = torch.repeat_interleave(torch.repeat_interleave(xc, 2, dim=1),
+                                 2, dim=2)
+    return up[:, :H, :W]
+
+
+CHEB_DEGREE = 2
+
+
+def _cheb_smooth(L: GeoMgLevel, b, x):
+    """Chebyshev polynomial smoother of fixed degree on D^-1 A (Adams et
+    al. recurrence), from x = 0 when x is None.  The post-smoother's
+    residual is one matvec kernel; each recurrence step is one fused
+    cheb_step kernel (the JAX package's configuration without
+    Dinv-premultiplied init planes)."""
+    lmax = L.lam_max
+    lmin = lmax / 4.0
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    Dinv = L.inv_diag[None]
+
+    r = b if x is None else b - matvec(L.A, x)
+    d = (1.0 / theta) * (Dinv * r)
+    x = d if x is None else x + d
+    for _ in range(CHEB_DEGREE - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        r, d, x = cheb_step(L.A, L.inv_diag, r, d, x,
+                            ca=float(rho_new * rho),
+                            cb=float(2.0 * rho_new / delta))
+        rho = rho_new
+    return x
+
+
+def _vcycle(hier: GeoMgHierarchy, lvl: int, b):
+    if lvl == len(hier.levels):
+        B = b.shape[0]
+        hc, wc = hier.coarse_shape
+        # full-f32 coarse solve: a float32 matmul on the card may use
+        # TF32 (about 3 decimal digits), which would truncate the
+        # correction the way bf16 MXU passes did on the TPU; both
+        # switches are set off here, where the only matmul of the solve
+        # runs
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        x = b.reshape(B, hc * wc) @ hier.coarse_pinv.T
+        return x.reshape(B, hc, wc)
+    L = hier.levels[lvl]
+    x = _cheb_smooth(L, b, None)        # pre-smooth from zero
+    # fused residual + restrict: the pre-smooth residual exists only to
+    # be restricted, so the kernel never writes it
+    rc = residual_restrict(L.A, b, x)
+    xc = _vcycle(hier, lvl + 1, rc)
+    # piecewise-constant-prolongator MG underestimates the correction;
+    # a fixed over-correction factor restores grid-independent rates
+    x = x + hier.overcorrect * _prolong(xc, b.shape[1], b.shape[2])
+    x = _cheb_smooth(L, b, x)           # post-smooth
+    return x
+
+
+def geomg_apply(hier: GeoMgHierarchy, R):
+    """Preconditioner application M^-1 R for the stencil CG."""
+    return _vcycle(hier, 0, R)

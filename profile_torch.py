@@ -1,0 +1,104 @@
+"""Where the time of the port's main path goes, on one NVIDIA GPU.
+
+    python3 profile_torch.py [--size 1000] [--points 32] [--trace PATH]
+
+Runs the bench.py job (seed 42, size x size conductance raster with ~10%
+NODATA, `points` focal points, cg+amg, single precision, shortcut mode)
+through circuitscape_tpu_torch.compute(..., "cuda"): one warm run, then
+one run under torch.profiler.  Prints, as JSON lines:
+  - the job's wall time, host-timer sections and solver stats;
+  - device time per kernel name (sum and count) over the run, the
+    device's busy time (union of kernel intervals) and its idle share
+    of the run's wall time;
+and, given --trace, writes the Chrome trace there.  Fails without a
+CUDA device.
+"""
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+import torch  # noqa: E402
+
+
+def _busy_us(events):
+    """Union length of the device kernel intervals, microseconds."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, -1.0
+    for s, e in spans:
+        if s >= end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--size", type=int, default=1000)
+    ap.add_argument("--points", type=int, default=32)
+    ap.add_argument("--trace", default="",
+                    help="write the Chrome trace to this path")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch: no CUDA device available", file=sys.stderr)
+        return 2
+
+    import circuitscape_tpu_torch as cst
+    from chip_smoke import card_line, make_job
+    from circuitscape_tpu_torch import stats
+    from circuitscape_tpu_torch.timer import CSTIMER
+    from torch.profiler import ProfilerActivity, profile
+
+    print(card_line(), flush=True)
+    scratch = os.path.join(HERE, "build", "profile")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        cfg, _ = make_job(d, args.size, args.size, args.points)
+        cst.compute(cfg, device="cuda")           # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cst.compute(cfg, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        timers = {"/".join(p): round(t, 6)
+                  for p, (n, t) in sorted(CSTIMER._data.items())}
+        st = stats.finalize()
+
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        s = by_name.setdefault(e.name, [0.0, 0])
+        s[0] += e.time_range.end - e.time_range.start
+        s[1] += 1
+    busy = _busy_us(kernels) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    print(json.dumps({"size": args.size, "points": args.points,
+                      "wall_s": wall, "timers_s": timers,
+                      "cg_iters": st.get("cg_iters"),
+                      "solve_s": st.get("solve_s")}))
+    print(json.dumps({"device_busy_s": busy,
+                      "device_idle_share": 1.0 - busy / wall,
+                      "n_kernels": len(kernels),
+                      "kernels_ms": {k: [round(v[0] / 1e3, 4), v[1]]
+                                     for k, v in top[:25]}}))
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
+                    exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,6 +24,11 @@ import pytest
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
+
+
 @pytest.fixture(scope="session")
 def data_dir():
     return DATA_DIR

@@ -1,0 +1,197 @@
+"""circuitscape_tpu_torch.compute end to end on the CPU: a small job of
+the bench recipe against circuitscape_tpu.compute, the sgVerify4 golden
+with maps off, and the scenarios this package does not carry yet."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import circuitscape_tpu as cs
+import circuitscape_tpu_torch as cst
+from golden_utils import DATA_DIR, check_resistances, readdlm
+
+# one intra-op thread: the suite runs in several pytest-xdist workers at
+# once, and torch's default of one thread per core oversubscribes the CPU
+torch.set_num_threads(1)
+
+
+def _bench_job(d, H, W, npoints, seed=42):
+    """bench.py's recipe at a small size: conductance raster with ~10%
+    NODATA and npoints focal points, as NPY files in d."""
+    rng = np.random.default_rng(seed)
+    g = rng.uniform(0.5, 3.0, (H, W))
+    g[rng.random((H, W)) < 0.10] = -9999.0
+    np.save(os.path.join(d, "cellmap.npy"), g)
+    pts = np.zeros((H, W))
+    placed = 0
+    while placed < npoints:
+        r, c = rng.integers(0, H), rng.integers(0, W)
+        if g[r, c] > 0 and pts[r, c] == 0:
+            placed += 1
+            pts[r, c] = placed
+    np.save(os.path.join(d, "points.npy"), pts)
+    return {
+        "data_type": "raster", "scenario": "pairwise",
+        "habitat_file": os.path.join(d, "cellmap.npy"),
+        "habitat_map_is_resistances": "False",
+        "point_file": os.path.join(d, "points.npy"),
+        "solver": "cg+amg", "suppress_messages": "True",
+    }
+
+
+@pytest.mark.parametrize("precision,four,avg", [
+    ("single", "False", "False"),     # the bench job's flags
+    ("double", "True", "True"),
+])
+def test_compute_matches_jax(tmp_path, precision, four, avg):
+    """(e) resistances to 1e-5 relative, and the same files written."""
+    cfg = _bench_job(str(tmp_path), 150, 130, 6)
+    cfg.update(precision=precision, connect_four_neighbors_only=four,
+               connect_using_avg_resistances=avg)
+    rt = cst.compute(dict(cfg, output_file=str(tmp_path / "t.out")),
+                     device="cpu")
+    rj = cs.compute(dict(cfg, output_file=str(tmp_path / "j.out")))
+    assert rt.dtype == rj.dtype
+    assert rt.shape == rj.shape == (7, 7)
+    np.testing.assert_array_equal(rt[0], rj[0])
+    np.testing.assert_array_equal(rt[:, 0], rj[:, 0])
+    assert np.max(np.abs(rt - rj) / np.maximum(np.abs(rj), 1e-30)) <= 1e-5
+    for suffix in ("_resistances.out", "_resistances_3columns.out"):
+        a = readdlm(str(tmp_path / f"t{suffix}"))
+        b = readdlm(str(tmp_path / f"j{suffix}"))
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=0)
+
+
+def test_golden_sgverify4_maps_off(tmp_path, monkeypatch):
+    """(f) sgVerify4 (no polygons; 4 neighbors, average resistances,
+    disconnected points) with maps forced off, which makes it a
+    shortcut-mode job, at the reference's tolerance (sqrt(1e-6))."""
+    monkeypatch.chdir(DATA_DIR)
+    cfg = cst.parse_config("input/raster/pairwise/4/sgVerify4.ini").to_dict()
+    cfg.update(write_volt_maps="False", write_cur_maps="False",
+               output_file=str(tmp_path / "sgVerify4.out"),
+               suppress_messages="True")
+    r = cst.compute(cfg, device="cpu")
+    x = readdlm(f"{DATA_DIR}/output_verify/sgVerify4_resistances.out")
+    check_resistances(x, r, 1e-6, label="sgVerify4")
+    written = readdlm(str(tmp_path / "sgVerify4_resistances.out"))
+    check_resistances(x, written, 1e-6, label="sgVerify4 (written)")
+    three = readdlm(
+        f"{DATA_DIR}/output_verify/sgVerify4_resistances_3columns.out")
+    check_resistances(three, readdlm(
+        str(tmp_path / "sgVerify4_resistances_3columns.out")), 1e-6,
+        label="sgVerify4 3columns")
+
+
+@pytest.mark.parametrize("override,item", [
+    ({"scenario": "advanced"}, "item 8"),
+    ({"scenario": "one-to-all"}, "item 8"),
+    ({"scenario": "all-to-one"}, "item 8"),
+    ({"data_type": "network"}, "item 9"),
+    ({"solver": "cholmod"}, "item 9"),
+    ({"use_polygons": "True"}, "item 7"),
+    ({"write_cur_maps": "True"}, "item 6"),
+    ({"write_volt_maps": "True"}, "item 6"),
+])
+def test_uncarried_scenarios_raise(tmp_path, override, item):
+    cfg = _bench_job(str(tmp_path), 20, 20, 3)
+    cfg.update(override, output_file=str(tmp_path / "x.out"))
+    with pytest.raises(NotImplementedError, match=item):
+        cst.compute(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("ini,item", [
+    ("input/raster/pairwise/6/sgVerify6.ini", "item 7"),    # focal regions
+    ("input/raster/pairwise/10/sgVerify10.ini", "item 7"),
+])
+def test_uncarried_corpus_jobs_raise(tmp_path, monkeypatch, ini, item):
+    monkeypatch.chdir(DATA_DIR)
+    cfg = cst.parse_config(ini).to_dict()
+    cfg.update(write_volt_maps="False", write_cur_maps="False",
+               output_file=str(tmp_path / "x.out"))
+    with pytest.raises(NotImplementedError, match=item):
+        cst.compute(cfg, device="cpu")
+
+
+def test_exclude_pairs_raise(tmp_path):
+    """Exclude pairs turn the shortcut off; the per-pair path is not
+    carried yet."""
+    cfg = _bench_job(str(tmp_path), 24, 24, 3)
+    pairs = tmp_path / "pairs.txt"
+    pairs.write_text("mode exclude\n1 2\n")
+    cfg.update(use_included_pairs="True", included_pairs_file=str(pairs),
+               output_file=str(tmp_path / "x.out"))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        cst.compute(cfg, device="cpu")
+
+
+def test_chunked_resume_matches_jax(tmp_path, monkeypatch):
+    """A checkpointed shortcut job in 1-pair device chunks, killed after
+    its first chunk, resumes without re-solving that chunk and agrees
+    with the JAX package's clean run (tests/test_checkpoint.py's
+    shortcut case, on this package)."""
+    from circuitscape_tpu_torch.drivers import core
+    from circuitscape_tpu_torch.solve import stencil
+    hdr = ("ncols 6\nnrows 6\nxllcorner 0\nyllcorner 0\ncellsize 1\n"
+           "NODATA_value -9999\n")
+    (tmp_path / "cell.asc").write_text(
+        hdr + "\n".join(["1 1 2 1 1 1"] * 6) + "\n")
+    (tmp_path / "pts.asc").write_text(
+        hdr + "1 0 0 0 0 2\n0 0 0 0 0 0\n0 0 0 0 0 0\n"
+        "0 0 0 0 0 0\n0 0 0 0 0 0\n3 0 0 4 0 0\n")
+    cfg = {"data_type": "raster", "scenario": "pairwise",
+           "habitat_file": str(tmp_path / "cell.asc"),
+           "point_file": str(tmp_path / "pts.asc"),
+           "output_file": str(tmp_path / "j.out"), "solver": "cg+amg",
+           "suppress_messages": "True"}
+    rj = cs.compute(cfg)
+    cfg.update(output_file=str(tmp_path / "t.out"),
+               checkpoint_file=str(tmp_path / "t.ckpt.npz"))
+
+    solve = stencil.stencil_solve_pairs
+    calls = []
+
+    def killed_after_one(*a, **k):
+        calls.append(len(a[1]))
+        if len(calls) > 1:
+            raise KeyboardInterrupt("simulated kill")
+        return solve(*a, **k)
+
+    monkeypatch.setattr(core, "_shortcut_chunk_cap", 1)
+    monkeypatch.setattr(stencil, "stencil_solve_pairs", killed_after_one)
+    with pytest.raises(KeyboardInterrupt):
+        cst.compute(cfg, device="cpu")
+    assert os.path.exists(cfg["checkpoint_file"])
+
+    calls.clear()
+    monkeypatch.setattr(stencil, "stencil_solve_pairs",
+                        lambda *a, **k: calls.append(len(a[1])) or
+                        solve(*a, **k))
+    rt = cst.compute(cfg, device="cpu")
+    assert calls == [1, 1]          # 3 anchor pairs, the first restored
+    assert not os.path.exists(cfg["checkpoint_file"])
+    assert np.max(np.abs(rt - rj) / np.maximum(np.abs(rj), 1e-30)) <= 1e-5
+
+
+def test_compute_reads_ini_and_asc(tmp_path):
+    """An INI job with AAGrid inputs (the verify-skill recipe) agrees
+    with the JAX package."""
+    asc = ("ncols 5\nnrows 5\nxllcorner 0\nyllcorner 0\ncellsize 1\n"
+           "NODATA_value -9999\n")
+    (tmp_path / "cell.asc").write_text(
+        asc + "1 1 1 2 2\n1 1 1 2 2\n1 -9999 1 1 1\n1 1 1 1 1\n2 2 1 1 1\n")
+    (tmp_path / "pts.asc").write_text(
+        asc + "1 0 0 0 2\n0 0 0 0 0\n0 0 0 0 0\n0 0 0 0 0\n3 0 0 0 0\n")
+    for name in ("t", "j"):
+        (tmp_path / f"{name}.ini").write_text(
+            "[Circuitscape mode]\ndata_type = raster\nscenario = pairwise\n"
+            f"[Habitat raster or graph]\nhabitat_file = {tmp_path}/cell.asc"
+            "\n[Options for pairwise and one-to-all and all-to-one modes]\n"
+            f"point_file = {tmp_path}/pts.asc\n[Output options]\n"
+            f"output_file = {tmp_path}/{name}.out\n"
+            "[Calculation options]\nsolver = cg+amg\n")
+    rt = cst.compute(str(tmp_path / "t.ini"), device="cpu")
+    rj = cs.compute(str(tmp_path / "j.ini"))
+    np.testing.assert_allclose(rt, rj, rtol=1e-6)

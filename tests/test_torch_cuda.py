@@ -1,0 +1,72 @@
+"""The CUDA kernels of circuitscape_tpu_torch against their plain versions,
+on the card.  Marked `cuda`: they skip without a CUDA device.  On a
+machine with one (which need not have JAX), run
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+This file imports neither JAX nor circuitscape_tpu."""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+TOL = 1e-5   # max |kernel - plain| <= TOL * max |plain|: f32 sum order
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _operator(H, W, dev, seed=0):
+    from circuitscape_tpu_torch.solve.stencil import (
+        _to_dtype, stencil_from_gmap_device)
+    rng = np.random.default_rng(seed)
+    g = rng.uniform(0.5, 3.0, (H, W))
+    g[rng.random((H, W)) < 0.15] = 0.0
+    A = _to_dtype(stencil_from_gmap_device(torch.as_tensor(g, device=dev),
+                                           False, False), torch.float32)
+    dinv = torch.where(A.diag > 0, 1.0 / torch.where(A.diag == 0, 1.0,
+                                                     A.diag), 0.0)
+    blocks = [torch.randn((4,) + (H, W), generator=torch.Generator(
+        device=dev).manual_seed(seed + k), device=dev) for k in range(3)]
+    return A, dinv.contiguous(), blocks
+
+
+def _close(got, ref):
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= TOL * float(r.abs().max())
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", [(37, 53), (64, 100)])
+def test_kernels_match_plain(dev, B, shape):
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    A, dinv, (x, b, d) = _operator(*shape, dev)
+    x, b, d = x[:B].contiguous(), b[:B].contiguous(), d[:B].contiguous()
+    cs.reset_launch_counts()
+    _close(cs.matvec(A, x), cs.matvec_plain(A, x))
+    _close(cs.matvec_pap(A, x), cs.matvec_pap_plain(A, x))
+    _close(cs.cheb_step(A, dinv, b, d, x, 0.37, 1.21),
+           cs.cheb_step_plain(A, dinv, b, d, x, 0.37, 1.21))
+    _close(cs.residual_restrict(A, b, x), cs.residual_restrict_plain(A, b, x))
+    torch.cuda.synchronize()
+    assert all(n == 1 for n in cs.LAUNCHES.values())
+
+
+def test_wrappers_refuse_what_kernels_do_not_take(dev):
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    A, _, (x, _, _) = _operator(16, 16, dev)
+    with pytest.raises(ValueError):
+        cs.matvec(A, x.double())
+    with pytest.raises(ValueError):
+        cs.matvec(A, x[:, :, :8])
+    with pytest.raises(ValueError):
+        cs.matvec(A, x.transpose(1, 2))
