@@ -18,10 +18,20 @@ Phases (any failure exits non-zero; nothing is caught):
      single precision, shortcut mode) through compute(..., "cuda"):
      one warm run, then two timed runs, each with the launch counters
      set to 0 just before it; check the resistances (finite, positive
-     off the diagonal, symmetric) and that every kernel launched;
-  4. run a 256 x 256 job of the same recipe on "cuda" and on "cpu" and
-     require the resistances to agree to 1e-5 relative;
-  5. print the kernels line, the card line and, last, the result line.
+     off the diagonal, symmetric), the CG iteration count (10) and that
+     every kernel launched;
+  4. drive the maps path: the same job with write_cum_cur_map_only and
+     write_max_cur_maps (all 496 pairs solved in chunks of 32, two
+     1M-cell ASC maps written): one warm run, then one timed run with
+     the counters set to 0 just before it; check that every kernel
+     launched, that the resistances agree with phase 3's shortcut
+     matrix to 1e-4 relative, and that the cumulative map is finite,
+     >= 0 on active cells and > 0 somewhere;
+  5. run 256 x 256 jobs of the same recipe on "cuda" and on "cpu": the
+     shortcut job (resistances agree to 1e-5 relative) and an 8-point
+     maps job with per-pair current and voltage maps and the max map
+     (the same files, every map within 1e-5 of max |cpu map|);
+  6. print the kernels line, the card line and, last, the result line.
 
 Exits 2 without printing a result when no CUDA device is available.
 """
@@ -58,7 +68,11 @@ KERNELS = (
     ("cheb_step", "circuitscape_tpu/solve/pallas_stencil.py:307", 23),
     ("residual_restrict", "circuitscape_tpu/solve/pallas_stencil.py:724",
      19),
+    ("cheb_init", "circuitscape_tpu/solve/pallas_stencil.py:473", 24),
+    ("residual_init", "circuitscape_tpu/solve/pallas_stencil.py:573", 21),
+    ("cheb_finish", "circuitscape_tpu/solve/pallas_stencil.py:595", 25),
 )
+CG_ITERS = 10     # the bench job's CG iterations (one chunk of 31 pairs)
 SOURCE = "circuitscape_tpu_torch/csrc/stencil_kernels.cu"
 
 
@@ -75,7 +89,8 @@ def card_line() -> str:
 
 def kernel_bytes(name, B, H, W) -> int:
     """Bytes the function must move: each input read once, each output
-    written once (float32)."""
+    written once (float32).  The smoother kernels count six planes (the
+    five of L and Dinv), whatever a design reads."""
     cells = H * W
     coarse = -(-H // 2) * -(-W // 2)
     return 4 * {
@@ -83,6 +98,9 @@ def kernel_bytes(name, B, H, W) -> int:
         "matvec_pap": (2 * B + 5) * cells + B,
         "cheb_step": (6 * B + 6) * cells,
         "residual_restrict": (2 * B + 5) * cells + B * coarse,
+        "cheb_init": (2 * B + 6) * cells,
+        "residual_init": (4 * B + 6) * cells,
+        "cheb_finish": (3 * B + 6) * cells,
     }[name]
 
 
@@ -178,6 +196,7 @@ def _pairs(name, A, dinv, blocks):
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
     x, b, r, d = blocks
     ca, cb = 0.37, 1.21
+    c = 0.8
     return {
         "matvec": (lambda: cs.matvec(A, x), lambda: cs.matvec_plain(A, x)),
         "matvec_pap": (lambda: cs.matvec_pap(A, x),
@@ -186,6 +205,13 @@ def _pairs(name, A, dinv, blocks):
                       lambda: cs.cheb_step_plain(A, dinv, r, d, x, ca, cb)),
         "residual_restrict": (lambda: cs.residual_restrict(A, b, x),
                               lambda: cs.residual_restrict_plain(A, b, x)),
+        "cheb_init": (lambda: cs.cheb_init(A, dinv, b, c, ca, cb),
+                      lambda: cs.cheb_init_plain(A, dinv, b, c, ca, cb)),
+        "residual_init": (lambda: cs.residual_init(A, dinv, b, x, c),
+                          lambda: cs.residual_init_plain(A, dinv, b, x, c)),
+        "cheb_finish": (lambda: cs.cheb_finish(A, dinv, r, x, c, ca, cb),
+                        lambda: cs.cheb_finish_plain(A, dinv, r, x, c, ca,
+                                                     cb)),
     }[name]
 
 
@@ -320,21 +346,81 @@ def phase_main(cfg, rows):
         note(f"main path run {run}: {dt:.3f} s, launches {launches}")
         best = min(best, dt)
     check_resistances(r, "main path")
+    check_launched(launches, "main path")
     for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
         rows[name]["launches"] = n
     st = stats.finalize()
     note(f"main path: best of 2 = {best:.3f} s, cg_iters "
          f"{st.get('cg_iters')}, mg_kernels {st.get('mg_kernels')}, "
          f"solve_s {st.get('solve_s'):.3f}, fine_spmv_pct_of_mem_roofline "
          f"{st.get('fine_spmv_pct_of_mem_roofline')}")
+    if st.get("cg_iters") != CG_ITERS:
+        raise AssertionError(f"main path: {st.get('cg_iters')} CG "
+                             f"iterations, expected {CG_ITERS}")
     return r
 
 
+def check_launched(launches, label):
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{label}")
+
+
+def read_asc(path):
+    return np.loadtxt(path, skiprows=6, ndmin=2)
+
+
+def phase_maps(cfg, gmap, r_shortcut):
+    """The bench job with the cumulative and max current maps: every
+    pair solved on the card.  Warm run, then one timed run with the
+    launch counters zeroed just before it."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch import stats
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    from circuitscape_tpu_torch.timer import CSTIMER
+
+    cfg = dict(cfg, output_file=os.path.join(
+        os.path.dirname(cfg["output_file"]), "maps.out"),
+        write_cum_cur_map_only="True", write_max_cur_maps="True")
+    cst.compute(cfg, device="cuda")
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    t = time.perf_counter()
+    r = cst.compute(cfg, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = dict(cs.LAUNCHES)
+    st = stats.finalize()
+    sections = {k: round(CSTIMER.total(k), 4) for k in (
+        "batched pair solve", "node currents + reduce", "write maps",
+        "write cumulative current maps")}
+    note(f"maps path run: {dt:.3f} s, cg_iters {st.get('cg_iters')}, "
+         f"launches {launches}, sections {sections}")
+    check_launched(launches, "maps path")
+    check_resistances(r, "maps path")
+    off = ~np.eye(r.shape[0] - 1, dtype=bool)
+    a, b = r[1:, 1:][off], r_shortcut[1:, 1:][off]
+    rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    if not rel <= 1e-4:
+        raise AssertionError(f"maps path resistances differ from the "
+                             f"shortcut matrix by {rel} relative")
+    prefix = os.path.join(os.path.dirname(cfg["output_file"]), "maps")
+    cum = read_asc(prefix + "_cum_curmap.asc")
+    mx = read_asc(prefix + "_max_curmap.asc")
+    active = gmap > 0
+    if not (cum.shape == gmap.shape == mx.shape and
+            np.all(np.isfinite(cum)) and np.all(cum[active] >= 0) and
+            np.any(cum > 0)):
+        raise AssertionError("maps path: cumulative map not finite, "
+                             "non-negative and non-zero")
+    note(f"maps path: resistances agree with the shortcut matrix to "
+         f"{rel:.3e} relative; cumulative map max {cum.max():.6g}")
+
+
 def phase_agree(d):
-    """A 256 x 256 bench-recipe job on the card and on the CPU."""
+    """256 x 256 bench-recipe jobs on the card and on the CPU: the
+    shortcut job, and a maps job with per-pair and max maps."""
     import circuitscape_tpu_torch as cst
     cfg, _ = make_job(d, 256, 256)
     rg = cst.compute(cfg, device="cuda")
@@ -348,6 +434,33 @@ def phase_agree(d):
                              f"by {rel} relative")
     note(f"256x256 job: cuda and cpu resistances agree to {rel:.3e} "
          "relative")
+
+    md = os.path.join(d, "maps")
+    os.makedirs(md)
+    cfg, _ = make_job(md, 256, 256, npoints=8)
+    files = {}
+    for dev in ("cuda", "cpu"):
+        od = os.path.join(md, dev)
+        os.makedirs(od)
+        cst.compute(dict(cfg, output_file=os.path.join(od, "job.out"),
+                         write_cur_maps="True", write_volt_maps="True",
+                         write_max_cur_maps="True"), device=dev)
+        files[dev] = sorted(f for f in os.listdir(od)
+                            if f.endswith(".asc"))
+    if files["cuda"] != files["cpu"] or len(files["cpu"]) != 2 * 28 + 2:
+        raise AssertionError(f"256x256 maps job: cuda wrote "
+                             f"{files['cuda']}, cpu {files['cpu']}")
+    worst = 0.0
+    for f in files["cpu"]:
+        g = read_asc(os.path.join(md, "cuda", f))
+        c = read_asc(os.path.join(md, "cpu", f))
+        err = float(np.abs(g - c).max()) / float(np.abs(c).max())
+        if not err <= TOL:
+            raise AssertionError(f"256x256 maps job: {f} differs by "
+                                 f"{err} of max |cpu map|")
+        worst = max(worst, err)
+    note(f"256x256 maps job: {len(files['cpu'])} maps, cuda and cpu agree "
+         f"to {worst:.3e} of max |map|")
 
 
 def main():
@@ -368,7 +481,8 @@ def main():
     try:
         cfg, gmap = make_job(d, 1000, 1000)
         rows = phase_kernels(gmap, dev, dev_name)
-        phase_main(cfg, rows)
+        r = phase_main(cfg, rows)
+        phase_maps(cfg, gmap, r)
         phase_agree(tempfile.mkdtemp(dir=d))
     finally:
         shutil.rmtree(d, ignore_errors=True)

@@ -13,6 +13,12 @@
 //              - wse[i,j] x[i+1,j+1] - wse[i-1,j-1] x[i-1,j-1]
 //              - wne[i,j] x[i-1,j+1] - wne[i+1,j-1] x[i+1,j-1]
 //
+// The smoother kernels (cheb_init, cheb_finish) also apply L to Dinv v, i.e.
+// they use the weights premultiplied by the inverse diagonal at the cell each
+// term reads: w[q] * dinv[off[q]] (the centre: diag * dinv).  The TPU kernels
+// read these as nine premultiplied plane copies; here the products are formed
+// in registers from the five base planes and dinv, once per cell.
+//
 // Every kernel here is bound by memory bytes (~20 flops per cell and column
 // against at least 8 bytes).  The design moves each byte once: a thread owns
 // one cell (residual_restrict: a vertical pair of cells), loads its nine
@@ -82,6 +88,15 @@ __device__ __forceinline__ Stencil9 load_stencil(const Planes& P, int i,
         if (!ok) k.w[q] = 0.0f;
         k.off[q] = ok ? ni * W + nj : i * W + j;
     }
+    return k;
+}
+
+// The stencil of L Dinv: each weight times dinv at the cell its term reads.
+// Terms outside the grid keep weight 0 (their offset is the cell's own).
+__device__ __forceinline__ Stencil9 premultiply(Stencil9 k,
+                                                const float* __restrict__ dinv) {
+#pragma unroll
+    for (int q = 0; q < 9; ++q) k.w[q] *= __ldg(dinv + k.off[q]);
     return k;
 }
 
@@ -233,6 +248,79 @@ residual_restrict_kernel(Planes P, const float* __restrict__ bvec,
     }
 }
 
+// The degree-2 Chebyshev smoother from x = 0 in one pass:
+//   x = (1 + ca) c dinv b + cb dinv (b - c L (dinv b)).
+__global__ void __launch_bounds__(NT)
+cheb_init_kernel(Planes P, const float* __restrict__ dinv,
+                 const float* __restrict__ bvec, float* __restrict__ x,
+                 float c, float ca, float cb, int B, int H, int W) {
+    const int j = blockIdx.x * TX + threadIdx.x;
+    const int i = blockIdx.y * TY + threadIdx.y;
+    if (i >= H || j >= W) return;
+    const Stencil9 k = premultiply(load_stencil(P, i, j, H, W), dinv);
+    const size_t plane = (size_t)H * W;
+    const int at = i * W + j;
+    const float dv = __ldg(dinv + at);
+    const float c0 = (1.0f + ca) * c;
+#pragma unroll 1
+    for (int b = 0; b < B; ++b) {
+        const float* bb = bvec + b * plane;
+        const float bv = __ldg(bb + at);
+        const float r1 = bv - c * lap(k, bb);
+        x[b * plane + at] = c0 * (dv * bv) + cb * (dv * r1);
+    }
+}
+
+// Pass 1 of the warm smoother: r0 = b - L x;  x1 = x + c dinv r0.
+__global__ void __launch_bounds__(NT)
+residual_init_kernel(Planes P, const float* __restrict__ dinv,
+                     const float* __restrict__ bvec,
+                     const float* __restrict__ x, float* __restrict__ r_out,
+                     float* __restrict__ x1_out, float c, int B, int H,
+                     int W) {
+    const int j = blockIdx.x * TX + threadIdx.x;
+    const int i = blockIdx.y * TY + threadIdx.y;
+    if (i >= H || j >= W) return;
+    const Stencil9 k = load_stencil(P, i, j, H, W);
+    const size_t plane = (size_t)H * W;
+    const int at = i * W + j;
+    const float dv = __ldg(dinv + at);
+#pragma unroll 1
+    for (int b = 0; b < B; ++b) {
+        const size_t o = b * plane + at;
+        const float* xb = x + b * plane;
+        const float r = __ldg(bvec + o) - lap(k, xb);
+        r_out[o] = r;
+        x1_out[o] = __ldg(xb + at) + c * (dv * r);
+    }
+}
+
+// Pass 2 of the warm smoother:
+//   x2 = x1 + ca c dinv r0 + cb dinv (r0 - c L (dinv r0)).
+// Reads r0 at neighbour offsets, so pass 1 must have written all of it.
+__global__ void __launch_bounds__(NT)
+cheb_finish_kernel(Planes P, const float* __restrict__ dinv,
+                   const float* __restrict__ r0, const float* __restrict__ x1,
+                   float* __restrict__ x2, float c, float ca, float cb, int B,
+                   int H, int W) {
+    const int j = blockIdx.x * TX + threadIdx.x;
+    const int i = blockIdx.y * TY + threadIdx.y;
+    if (i >= H || j >= W) return;
+    const Stencil9 k = premultiply(load_stencil(P, i, j, H, W), dinv);
+    const size_t plane = (size_t)H * W;
+    const int at = i * W + j;
+    const float dv = __ldg(dinv + at);
+    const float cac = ca * c;
+#pragma unroll 1
+    for (int b = 0; b < B; ++b) {
+        const size_t o = b * plane + at;
+        const float* rb = r0 + b * plane;
+        const float rv = __ldg(rb + at);
+        const float r1 = rv - c * lap(k, rb);
+        x2[o] = __ldg(x1 + o) + cac * (dv * rv) + cb * (dv * r1);
+    }
+}
+
 inline dim3 tiles(int rows, int cols) {
     return dim3((cols + TX - 1) / TX, (rows + TY - 1) / TY);
 }
@@ -298,6 +386,45 @@ int cs_residual_restrict(const float* we, const float* ws, const float* wse,
     // one thread per fine column and coarse row
     residual_restrict_kernel<<<tiles((H + 1) / 2, W), dim3(TX, TY), 0,
                                (cudaStream_t)stream>>>(P, b, x, rc, B, H, W);
+    return (int)cudaGetLastError();
+}
+
+int cs_cheb_init(const float* we, const float* ws, const float* wse,
+                 const float* wne, const float* diag, const float* dinv,
+                 const float* b, float* x, float c, float ca, float cb, int B,
+                 int H, int W, void* stream) {
+    const int bad = launch_error(B, H, W);
+    if (bad >= 0) return bad;
+    const Planes P{we, ws, wse, wne, diag};
+    cheb_init_kernel<<<tiles(H, W), dim3(TX, TY), 0, (cudaStream_t)stream>>>(
+        P, dinv, b, x, c, ca, cb, B, H, W);
+    return (int)cudaGetLastError();
+}
+
+int cs_residual_init(const float* we, const float* ws, const float* wse,
+                     const float* wne, const float* diag, const float* dinv,
+                     const float* b, const float* x, float* r_out,
+                     float* x1_out, float c, int B, int H, int W,
+                     void* stream) {
+    const int bad = launch_error(B, H, W);
+    if (bad >= 0) return bad;
+    const Planes P{we, ws, wse, wne, diag};
+    residual_init_kernel<<<tiles(H, W), dim3(TX, TY), 0,
+                           (cudaStream_t)stream>>>(P, dinv, b, x, r_out,
+                                                   x1_out, c, B, H, W);
+    return (int)cudaGetLastError();
+}
+
+int cs_cheb_finish(const float* we, const float* ws, const float* wse,
+                   const float* wne, const float* diag, const float* dinv,
+                   const float* r0, const float* x1, float* x2, float c,
+                   float ca, float cb, int B, int H, int W, void* stream) {
+    const int bad = launch_error(B, H, W);
+    if (bad >= 0) return bad;
+    const Planes P{we, ws, wse, wne, diag};
+    cheb_finish_kernel<<<tiles(H, W), dim3(TX, TY), 0,
+                         (cudaStream_t)stream>>>(P, dinv, r0, x1, x2, c, ca,
+                                                 cb, B, H, W);
     return (int)cudaGetLastError();
 }
 

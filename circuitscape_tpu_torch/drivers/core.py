@@ -1,20 +1,27 @@
 """Core pairwise driver: all-pairs effective resistance over components.
 
-Counterpart of circuitscape_tpu/drivers/core.py, shortcut branch.
+Counterpart of circuitscape_tpu/drivers/core.py, its stencil branches.
 Parity reference: src/core.jl:64-739 (single_ground_all_pairs, shortcut
 optimization, get_num_pairs, voltmatrix bookkeeping).
 
 The reference schedules one linear solve per focal pair; here a raster
-without polygons is exactly a stencil, so the N-1 anchor pairs of every
-connected component solve as one batched device solve
+without polygons is exactly a stencil.  In shortcut mode the N-1 anchor
+pairs of every connected component solve as one batched device solve
 (_stencil_shortcut_solve), and the full matrix is rebuilt with the
-voltage-ratio shortcut.  Jobs that need per-pair maps or exclude pairs
-(no shortcut) are not carried yet (ROADMAP queue 1 item 6).
+voltage-ratio shortcut.  Jobs that write maps or exclude pairs turn the
+shortcut off and solve every pair in device chunks, with their current
+maps made on the device (_stencil_maps_solve), when the grid has at
+least CS_PAIRWISE_DEVICE_MIN cells; smaller ones take the JAX package's
+general sparse-graph path, which is not carried yet (ROADMAP queue 1
+item 9).
 """
 
 from __future__ import annotations
 
+import os
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -132,7 +139,9 @@ class _Shortcut:
 
 def single_ground_all_pairs(prob: GraphProblem, flags, cfg, device,
                             log=True):
-    """Solve all focal-point pairs, shortcut mode (src/core.jl:70-305)."""
+    """Solve all focal-point pairs (src/core.jl:70-305): in shortcut
+    mode, or pair by pair on the stencil device path when the job
+    writes maps or excludes pairs."""
     a = prob.G
     dtype = a.dtype
     points = prob.points
@@ -152,13 +161,24 @@ def single_ground_all_pairs(prob: GraphProblem, flags, cfg, device,
     get_shortcut = (flags.is_raster and not of.any_maps and not exclude)
     stencil_base = (flags.is_raster and not prob.solver.is_direct and
                     prob.cellmap.size > 0 and prob.nodemap.size > 0)
-    if not (get_shortcut and stencil_base):
+    maps_min = int(os.environ.get("CS_PAIRWISE_DEVICE_MIN", "40000"))
+    if not stencil_base or (not get_shortcut and
+                            prob.cellmap.size < maps_min):
         raise NotImplementedError(
-            "circuitscape_tpu_torch carries raster pairwise in shortcut "
-            "mode only (no maps, no exclude pairs); per-pair solves are "
-            "ROADMAP queue 1 item 6")
+            "pairwise jobs off the stencil device path (maps-on or "
+            f"exclude-pair jobs below CS_PAIRWISE_DEVICE_MIN={maps_min} "
+            "cells) take the general sparse-graph path, which is not "
+            "carried by circuitscape_tpu_torch yet (ROADMAP queue 1 item 9)")
+    if of.any_maps and cfg.write_as_tif:
+        raise NotImplementedError(
+            "GeoTIFF output is not carried by circuitscape_tpu_torch yet "
+            "(ROADMAP queue 1 item 10); set write_as_tif = False")
 
     resistances = -np.ones((numpoints, numpoints), dtype)
+    if not get_shortcut:
+        _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
+                            device)
+        return _save_padded(resistances, orig_pts, cfg)
     voltmatrix = np.zeros((numpoints, numpoints), dtype)
     shortcut_res = -np.ones((numpoints, numpoints), dtype)
 
@@ -174,9 +194,14 @@ def single_ground_all_pairs(prob: GraphProblem, flags, cfg, device,
                             shortcut_res, device, ckpt, done_pairs,
                             max_par=getattr(cfg, "max_parallel", 0))
     ckpt.finish()
-    resistances = shortcut_res
+    return _save_padded(shortcut_res, orig_pts, cfg)
+
+
+def _save_padded(resistances, orig_pts, cfg):
+    """Zero diagonal, pad with the user point ids (src/core.jl:299),
+    write the resistance files; returns the padded matrix."""
+    dtype = resistances.dtype
     np.fill_diagonal(resistances, 0)
-    # Pad with the user point ids (src/core.jl:299)
     op = np.asarray(orig_pts, dtype)
     r = np.vstack([np.concatenate([np.zeros(1, dtype), op])[None, :],
                    np.column_stack([op, resistances])])
@@ -322,6 +347,244 @@ def _stencil_shortcut_solve(prob, flags, resistances, voltmatrix,
         update_shortcut_resistances(anchor,
                                     _Shortcut(True, voltmatrix, shortcut_res),
                                     resistances, points, comp)
+
+
+def _maps_pairs(prob, exclude, done_pairs, resistances):
+    """All-pairs assembly across components for the maps path: one solve
+    per focal node pair, assigned to every user-point combo mapping to
+    it (src/core.jl:386-444); zero resistance between points that share
+    a node.  Returns [(src_node, dst_node, combos)]."""
+    points = prob.points
+    orig_pts = prob.user_points
+    pair_list = []
+    for comp in prob.cc:
+        csub = _sub_focal(points, np.sort(np.asarray(comp)))
+        for pi, src_node in enumerate(csub):
+            src_indices = np.nonzero(points == src_node)[0]
+            for ii in range(len(src_indices)):
+                for jj in range(ii + 1, len(src_indices)):
+                    resistances[src_indices[ii], src_indices[jj]] = 0
+                    resistances[src_indices[jj], src_indices[ii]] = 0
+            for dst_node in csub[pi + 1:]:
+                if dst_node == src_node:
+                    continue
+                dst_indices = np.nonzero(points == dst_node)[0]
+                combos = [(int(ci), int(cj))
+                          for ci in src_indices for cj in dst_indices
+                          if (int(orig_pts[ci]), int(orig_pts[cj]))
+                          not in exclude]
+                if not combos:
+                    continue
+                if done_pairs and all(c in done_pairs for c in combos):
+                    continue    # resumed from checkpoint
+                pair_list.append((src_node, dst_node, combos))
+    return pair_list
+
+
+def _host_copy(t: torch.Tensor):
+    """Start t's copy to the host on the calling thread: on CUDA into
+    pinned memory, asynchronously on the current stream, with an event
+    that marks its end; on the CPU a plain contiguous copy.  Returns
+    (host tensor, event or None) for _host_wait."""
+    if not t.is_cuda:
+        return t.contiguous(), None
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return buf, ev
+
+
+def _host_wait(copy) -> np.ndarray:
+    buf, ev = copy
+    if ev is not None:
+        ev.synchronize()
+    return buf.numpy()
+
+
+def _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
+                        device):
+    """Maps-on (and exclude-pair) pairwise via the stencil device path
+    (counterpart of the JAX package's drivers/core._stencil_maps_solve).
+
+    All pairs of all components solve in batched device chunks of at
+    most 32 columns.  Per chunk, on the device: each column is
+    normalised to its source cell and zeroed outside the pair's
+    component, node currents are computed (float32), log transform and
+    null-to-nodata are applied per map, and the cumulative (float64, one
+    count per user-point combo) and max maps reduce over the batch.
+    Their device->host copies start on the main thread (pinned memory
+    and an event) and are waited for one chunk later, while the next
+    chunk solves; a thread pool writes the per-pair files.  The host
+    accumulates cum/max in chunk order, then marks the chunk's pairs
+    done, so a checkpoint never holds a chunk's maps without its pairs.
+    """
+    from ..solve.dispatch import (SolverFailedError, pow2_floor,
+                                  reraise_if_device_oom,
+                                  solve_chunk_budget)
+    from ..solve.prepare import prepare_stencil_solver_from_gmap
+    from ..solve.stencil import stencil_node_currents, stencil_solve_pairs
+
+    orig_pts = prob.user_points
+    nodemap = prob.nodemap
+    of = flags.outputflags
+    dtype = resistances.dtype
+    nodata = prob.hbmeta.nodata
+    H, W = nodemap.shape
+
+    cslog.info("pairwise device path (maps on)")
+    with CSTIMER("prepare stencil solver (upload + MG setup)"):
+        S64, prec, prec_apply, _ = prepare_stencil_solver_from_gmap(
+            prob.cellmap, flags.avg_res, flags.four_neighbors, device)
+    Hp, Wp = S64.shape       # bucketed up from (H, W); maps crop back
+    dev = S64.diag.device
+
+    rr, cc_ = np.nonzero(nodemap)
+    node_cell = np.zeros((int(nodemap.max()) + 1, 2), np.int64)
+    node_cell[nodemap[rr, cc_]] = np.column_stack([rr, cc_])
+    # component label per cell: a pair's voltages are zero outside its
+    # component (create_voltage_map on the local nodemap)
+    comp_label_of_node = np.zeros(int(nodemap.max()) + 1, np.int32)
+    for ci, comp in enumerate(prob.cc):
+        comp_label_of_node[np.asarray(comp)] = ci + 1
+    labels_grid = np.zeros((Hp, Wp), np.int32)
+    labels_grid[rr, cc_] = comp_label_of_node[nodemap[rr, cc_]]
+    labels_dev = torch.as_tensor(labels_grid, device=dev)
+
+    ckpt = Checkpoint(getattr(cfg, "checkpoint_file", ""))
+    done_pairs = ckpt.load(resistances, cum)
+    pair_list = _maps_pairs(prob, exclude, done_pairs, resistances)
+
+    write_pair_files = of.write_cur_maps and not of.write_cum_cur_map_only
+    need_cur = (of.write_cur_maps or of.write_cum_cur_map_only or
+                of.write_max_cur_maps)
+    null_cur = None
+    if need_cur and of.set_null_currents_to_nodata:
+        m = np.ones((Hp, Wp), bool)
+        m[:H, :W] = prob.cellmap == 0
+        null_cur = torch.as_tensor(m, device=dev)
+
+    # per column the chunk also holds the normalised voltages and the
+    # float32 node currents besides the solve's own blocks; chunks cap
+    # at 32 so that one chunk's output overlaps the next one's solve
+    per_col = H * W * 8 * 9
+    budget = solve_chunk_budget(H * W, dev)
+    step = max(1, min(32, budget // max(per_col, 1)))
+    if getattr(cfg, "max_parallel", 0) > 0:
+        step = min(step, cfg.max_parallel)
+    step = pow2_floor(step)   # after the clamp: the batch pads up to pow2
+
+    writer = ThreadPoolExecutor(max_workers=max(2, os.cpu_count() or 2))
+    pending = []            # file-write futures
+    inflight = deque()      # (chunk, resistances, host copies) per chunk
+
+    def drain_one():
+        chunk, rvals, copies = inflight.popleft()
+        with CSTIMER("fetch maps"):
+            host = {k: _host_wait(v) for k, v in copies.items()}
+        with CSTIMER("node currents + reduce"):
+            if "cum" in host:
+                cum.cum_curr += host["cum"].astype(dtype, copy=False)
+            if "max" in host:
+                np.maximum(cum.max_curr, host["max"].astype(dtype),
+                           out=cum.max_curr)
+        with CSTIMER("write maps"):
+            for col, (_, _, combos) in enumerate(chunk):
+                resistance = float(rvals[col])
+                for (c_i, c_j) in combos:
+                    resistances[c_i, c_j] = resistance
+                    resistances[c_j, c_i] = resistance
+                    name = f"_{int(orig_pts[c_i])}_{int(orig_pts[c_j])}"
+                    if write_pair_files:
+                        pending.append(writer.submit(
+                            out.write_grid, host["cur"][col], name, cfg,
+                            prob.hbmeta))
+                    if of.write_volt_maps:
+                        vm = host["volt"][col].copy()
+                        if of.set_null_voltages_to_nodata:
+                            vm[prob.cellmap == 0] = nodata
+                        pending.append(writer.submit(
+                            out.write_grid, vm, name, cfg, prob.hbmeta,
+                            voltage=True))
+                ckpt.mark(combos)
+        if ckpt.enabled:
+            for f in pending:   # a saved chunk's maps must be on disk
+                f.result()
+            pending.clear()
+            ckpt.save(resistances, cum)
+
+    try:
+        for s0 in range(0, len(pair_list), step):
+            chunk = pair_list[s0:s0 + step]
+            bsz = len(chunk)
+            src_cells = np.asarray([node_cell[p[0]] for p in chunk],
+                                   np.int64)
+            dst_cells = np.asarray([node_cell[p[1]] for p in chunk],
+                                   np.int64)
+            with CSTIMER("batched pair solve"):
+                t0 = time.perf_counter()
+                try:
+                    X, rel, iters = stencil_solve_pairs(
+                        S64, src_cells, dst_cells, rtol=consts.CG_RTOL,
+                        itmax=consts.CG_ITMAX, prec=prec,
+                        prec_apply=prec_apply)
+                except torch.cuda.OutOfMemoryError as e:
+                    reraise_if_device_oom(e, Hp * Wp, bsz)
+                stats.record_solve(tuple(X.shape), iters,
+                                   time.perf_counter() - t0)
+            if np.any(rel >= consts.RESIDUAL_GATE):
+                raise SolverFailedError(
+                    f"CG solver did not converge: relative residual "
+                    f"{float(rel.max())} exceeds tolerance "
+                    f"{consts.RESIDUAL_GATE}")
+            # normalise each column to its source cell, zero outside the
+            # pair's component
+            cols = torch.arange(bsz, device=dev)
+            scj = torch.as_tensor(src_cells, device=dev)
+            dcj = torch.as_tensor(dst_cells, device=dev)
+            Xb = X[:bsz]
+            vsrc = Xb[cols, scj[:, 0], scj[:, 1]]
+            pair_label = labels_dev[scj[:, 0], scj[:, 1]]
+            in_comp = labels_dev[None] == pair_label[:, None, None]
+            Xb = torch.where(in_comp, Xb - vsrc[:, None, None], 0.0)
+            rvals = Xb[cols, dcj[:, 0], dcj[:, 1]].cpu().numpy()
+
+            copies = {}
+            if need_cur:
+                with CSTIMER("node currents + reduce"):
+                    ncur = stencil_node_currents(S64, Xb,
+                                                 out_dtype=torch.float32)
+                    if of.log_transform_maps:
+                        ncur = torch.where(ncur > 0, torch.log10(ncur),
+                                           nodata)
+                    if null_cur is not None:
+                        ncur = torch.where(null_cur[None], nodata, ncur)
+                    # one accumulation per user-point combo (duplicate
+                    # focal ids share a solve), summed in float64
+                    combo_n = torch.tensor([len(c[2]) for c in chunk],
+                                           dtype=torch.float64, device=dev)
+                    copies["cum"] = _host_copy(torch.einsum(
+                        "b,bhw->hw", combo_n, ncur.double())[:H, :W])
+                    if of.write_max_cur_maps:
+                        copies["max"] = _host_copy(
+                            torch.amax(ncur, dim=0)[:H, :W])
+                    if write_pair_files:
+                        copies["cur"] = _host_copy(ncur[:, :H, :W])
+            if of.write_volt_maps:
+                # maps stay float32 on the host, as in the JAX package
+                copies["volt"] = _host_copy(Xb[:, :H, :W].float())
+            inflight.append((chunk, rvals, copies))
+            if len(inflight) >= 2:
+                drain_one()
+        while inflight:
+            drain_one()
+        with CSTIMER("write maps"):
+            for f in pending:
+                f.result()
+            pending.clear()
+    finally:
+        writer.shutdown(wait=True)
+    ckpt.finish()
 
 
 def update_shortcut_resistances(anchor, sc, resistances, points, comp):

@@ -38,12 +38,20 @@ def raster_pairwise(cfg, dtype, device):
 
 
 def _pt_file_no_polygons_path(rasterdata, flags, cfg, dtype, device):
-    """src/raster/pairwise.jl:55-69 (shortcut mode writes no maps)."""
+    """src/raster/pairwise.jl:55-69."""
     with CSTIMER("construct graph"):
         graphdata = compute_graph_data_no_polygons(rasterdata, flags, cfg,
                                                    dtype)
     with CSTIMER("solve pairwise resistances"):
-        return single_ground_all_pairs(graphdata, flags, cfg, device)
+        r = single_ground_all_pairs(graphdata, flags, cfg, device)
+
+    of = flags.outputflags
+    if of.write_cur_maps or of.write_cum_cur_map_only:
+        with CSTIMER("write cumulative current maps"):
+            out.write_cum_maps(graphdata.cum, rasterdata.cellmap, cfg,
+                               rasterdata.hbmeta, of.write_max_cur_maps,
+                               of.write_cum_cur_map_only)
+    return r
 
 
 class LazyStencilGraph:

@@ -1,11 +1,13 @@
 """Raster input: AAGrid (.asc) and NPY, with transparent gzip.
 
 Counterpart of circuitscape_tpu/io/raster.py, reduced to the readers
-that load_raster_data needs on the port's main path.  Parity reference:
-src/io.jl:113-157 (file sniffing), :517-555 (read_raster: nodata ->
--9999 normalization, NaN -> -9999).  GeoTIFF, ENVI and EHdr inputs and
-the raster writers are not carried yet (ROADMAP queue 1 items 6 and 10)
-and raise NotImplementedError.
+that load_raster_data needs and the ASC writer of the maps.  Parity
+reference: src/io.jl:113-157 (file sniffing), :517-555 (read_raster:
+nodata -> -9999 normalization, NaN -> -9999), src/out.jl:485-531
+(write_raster).  GeoTIFF, ENVI and EHdr inputs and GeoTIFF output are
+not carried yet (ROADMAP queue 1 item 10) and raise
+NotImplementedError; the ASC body is always the Python formatter (the
+JAX package's native one is not carried, item 10).
 """
 
 from __future__ import annotations
@@ -149,3 +151,40 @@ def get_raster_meta(arr, wkt, transform) -> RasterMeta:
 def grid_reader(path: str, dtype=np.float64):
     arr, wkt, transform = read_raster(path, dtype)
     return arr, get_raster_meta(arr, wkt, transform)
+
+
+def write_aagrid(path: str, arr: np.ndarray, meta_transform, nodata=-9999.0):
+    """Write an ESRI ASCII grid in the GDAL AAIGrid layout: the header,
+    then one "%.12g" value per cell (12 significant digits, ~1e-12
+    relative round-trip)."""
+    nrows, ncols = arr.shape
+    xll = meta_transform[0]
+    yll = meta_transform[3] - nrows * meta_transform[1]
+    cellsize = meta_transform[1]
+
+    def fmt_hdr(v):
+        fv = float(v)
+        return str(int(fv)) if fv == int(fv) else repr(fv)
+
+    row_fmt = " ".join(["%.12g"] * ncols)
+    with open(path, "w") as f:
+        f.write(f"ncols        {ncols}\n")
+        f.write(f"nrows        {nrows}\n")
+        f.write(f"xllcorner    {fmt_hdr(xll)}\n")
+        f.write(f"yllcorner    {fmt_hdr(yll)}\n")
+        f.write(f"cellsize     {fmt_hdr(cellsize)}\n")
+        f.write(f"NODATA_value  {fmt_hdr(nodata)}\n")
+        # one C-level %-format per row
+        for row in np.asarray(arr, np.float64):
+            f.write(row_fmt % tuple(row))
+            f.write("\n")
+
+
+def write_raster(fn_prefix: str, array: np.ndarray, wkt: str, transform,
+                 file_format: str):
+    """Write a single-band raster as .asc (src/out.jl:485-531)."""
+    if file_format == "tif":
+        raise NotImplementedError(
+            "GeoTIFF output is not carried by circuitscape_tpu_torch yet "
+            "(ROADMAP queue 1 item 10); set write_as_tif = False")
+    write_aagrid(fn_prefix + ".asc", array, transform)

@@ -1,9 +1,10 @@
 """Output system: resistance files, output flags, cumulative-map holders.
 
-Counterpart of circuitscape_tpu/out.py, reduced to what shortcut-mode
-raster pairwise writes (the resistance matrix and its 3-column list).
-Current and voltage maps are not carried yet (ROADMAP queue 1 item 6).
-Parity reference: src/out.jl:1-26, :454-465.
+Counterpart of circuitscape_tpu/out.py, reduced to what raster
+pairwise writes: the resistance matrix and its 3-column list, and the
+current and voltage grids of the maps-on path (per pair, cumulative,
+max).  Network outputs are not carried yet (ROADMAP queue 1 item 9).
+Parity reference: src/out.jl:1-26, :305-386, :454-481.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from . import consts
+from .io.raster import write_raster
 
 
 @dataclass
@@ -102,3 +104,50 @@ def save_resistances(r: np.ndarray, cfg) -> None:
     pref = output_prefix(cfg)
     _writedlm(f"{pref}_resistances.out", r, " ")
     _writedlm(f"{pref}_resistances_3columns.out", compute_3col(r), " ")
+
+
+def process_grid(cmap, cellmap, hbmeta, log_transform=False,
+                 set_null_to_nodata=False):
+    """src/out.jl:305-319 (in place)."""
+    if log_transform:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            cmap[:] = np.where(cmap > 0, np.log10(cmap), hbmeta.nodata)
+    if set_null_to_nodata:
+        cmap[cellmap == 0] = hbmeta.nodata
+
+
+def write_grid(cmap, name, cfg, hbmeta, cellmap=None, voltage=False,
+               cum=False, maxmap=False, log_transform=False,
+               set_null_to_nodata=False):
+    """src/out.jl:321-386: <prefix>_{curmap,cum_curmap,max_curmap,
+    voltmap}<name>.asc, post-processed in place first when cellmap is
+    given."""
+    if cellmap is not None:
+        process_grid(cmap, cellmap, hbmeta, log_transform,
+                     set_null_to_nodata)
+    s = "curmap"
+    if cum:
+        s = "cum_" + s
+    elif maxmap:
+        s = "max_" + s
+    elif voltage:
+        s = "voltmap"
+    filename = f"{output_prefix(cfg)}_{s}{name}"
+    write_raster(filename, cmap, hbmeta.wkt, hbmeta.transform,
+                 "tif" if cfg.write_as_tif else "asc")
+
+
+def postprocess_cum_curmap(accum):
+    """src/utils.jl:116-121."""
+    accum[accum < consts.NODATA] = consts.NODATA
+
+
+def write_cum_maps(cum: Cumulative, cellmap, cfg, hbmeta, write_max,
+                   write_cum):
+    """src/out.jl:467-481."""
+    if write_cum or cfg.write_cur_maps:
+        postprocess_cum_curmap(cum.cum_curr)
+        write_grid(cum.cum_curr, "", cfg, hbmeta, cum=True)
+    if write_max:
+        postprocess_cum_curmap(cum.max_curr)
+        write_grid(cum.max_curr, "", cfg, hbmeta, maxmap=True)

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the stencil solve, and their plain versions.
 
-Counterpart of circuitscape_tpu/solve/pallas_stencil.py.  Four kernels,
+Counterpart of circuitscape_tpu/solve/pallas_stencil.py.  Seven kernels,
 all float32 on (B, H, W) blocks with zero-fill grid boundaries, compiled
 by nvcc for sm_90a from csrc/stencil_kernels.cu into a shared library
 with a plain C interface, loaded with ctypes on first use:
@@ -10,8 +10,18 @@ with a plain C interface, loaded with ctypes on first use:
   cheb_step         r' = r - L d; d' = ca d + cb Dinv r'; x' = x + d'
                                                   (pallas_cheb_step)
   residual_restrict rc = 2x2 patch sums of b - L x (pallas_residual_restrict)
+  cheb_init         x = (1+ca) c Dinv b + cb Dinv (b - c L Dinv b)
+                                                  (pallas_cheb_init)
+  residual_init     r0 = b - L x; x1 = x + c Dinv r0 (pallas_residual_init)
+  cheb_finish       x2 = x1 + ca c Dinv r0 + cb Dinv (r0 - c L Dinv r0)
+                                                  (pallas_cheb_finish)
 
-All four are bound by memory bytes: per cell and column they do ~20
+The last three are the V-cycle's degree-2 Chebyshev smoother in the JAX
+package's premultiplied-Dinv configuration: the pre-smoother from zero
+in one pass, the post-smoother in two (cheb_finish reads r0 at
+neighbour offsets, so all of r0 must be written first).
+
+All seven are bound by memory bytes: per cell and column they do ~20
 flops against >= 8 bytes, far below the card's flop:byte ratio.  The
 design moves each byte once.  A thread owns one cell (residual_restrict:
 one 2x2 coarse patch), loads that cell's nine weights from the five base
@@ -21,7 +31,9 @@ kernel got the same reuse from its batch-fastest grid).  Neighbour reads
 of x go through L1, where the adjacent threads of the tile have already
 brought them.  Unlike the TPU kernels, which read nine pre-shifted plane
 copies to avoid unaligned shifts, these read the five base planes at
-neighbour offsets: 5 instead of 9 plane bytes per cell.
+neighbour offsets: 5 instead of 9 plane bytes per cell.  For L Dinv
+the TPU reads nine premultiplied planes plus Dinv; these kernels form
+w * Dinv[neighbour] in registers, once per cell: 6 plane reads, not 10.
 
 Each wrapper takes CPU tensors to its plain-torch version (the tests run
 there) and CUDA tensors to its kernel; on a CUDA tensor it launches the
@@ -41,7 +53,7 @@ from pathlib import Path
 
 import torch
 
-from .stencil import StencilOperator, stencil_matvec
+from .stencil import StencilOperator, _sh, stencil_matvec
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -50,7 +62,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per wrapper, for showing that a run went through the kernels
 LAUNCHES = {"matvec": 0, "matvec_pap": 0, "cheb_step": 0,
-            "residual_restrict": 0}
+            "residual_restrict": 0, "cheb_init": 0, "residual_init": 0,
+            "cheb_finish": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -65,6 +78,9 @@ _SIGNATURES = {
     "cs_matvec_pap": [_P] * 5 + [_P, _P, _P] + [_I] * 3 + [_P],
     "cs_cheb_step": ([_P] * 5 + [_P] * 7 + [_F, _F] + [_I] * 3 + [_P]),
     "cs_residual_restrict": [_P] * 5 + [_P, _P, _P] + [_I] * 3 + [_P],
+    "cs_cheb_init": [_P] * 5 + [_P] * 3 + [_F] * 3 + [_I] * 3 + [_P],
+    "cs_residual_init": [_P] * 5 + [_P] * 5 + [_F] + [_I] * 3 + [_P],
+    "cs_cheb_finish": [_P] * 5 + [_P] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "cs_matvec_pap_blocks": [_I, _I],
 }
 
@@ -181,6 +197,65 @@ def residual_restrict_plain(A: StencilOperator, b, x):
     return _restrict(b - stencil_matvec(A, x))
 
 
+def expand_planes(A: StencilOperator, dinv: torch.Tensor) -> torch.Tensor:
+    """The nine output-aligned planes (9, H, W) of L Dinv in the order
+    the TPU kernels read them: E, W, S, N, SE, NW, NE, SW, centre, each
+    the weight of the term that reads x at that offset, premultiplied by
+    dinv at the cell that term reads (the centre: diag * dinv).
+    Counterpart of pallas_stencil._expand_planes_dinv cropped to
+    (H, W)."""
+    we, ws, wse, wne, diag = A.planes
+
+    def east(p):    # p[:, j] <- p[:, j+1]
+        return _sh(p[None], 0, -1)[0]
+
+    def west(p):    # p[:, j] <- p[:, j-1]
+        return _sh(p[None], 0, 1)[0]
+
+    def up(p):      # p[i] <- p[i-1]
+        return _sh(p[None], 1, 0)[0]
+
+    def dn(p):      # p[i] <- p[i+1]
+        return _sh(p[None], -1, 0)[0]
+
+    planes = [we, west(we), ws, up(ws), wse, west(up(wse)), wne,
+              west(dn(wne)), diag]
+    reads = [east(dinv), west(dinv), dn(dinv), up(dinv), dn(east(dinv)),
+             up(west(dinv)), up(east(dinv)), dn(west(dinv)), dinv]
+    return torch.stack([p * v for p, v in zip(planes, reads)])
+
+
+def _lap9(P9: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The stencil of the nine aligned planes P9 applied to v (B, H, W),
+    summed in the TPU kernels' order (pairs of terms)."""
+    wE, wW, wS, wN, wSE, wNW, wNE, wSW, dd = (p[None] for p in P9)
+    y = dd * v
+    y = y - (wE * _sh(v, 0, -1) + wW * _sh(v, 0, 1))
+    y = y - (wS * _sh(v, -1, 0) + wN * _sh(v, 1, 0))
+    y = y - (wSE * _sh(v, -1, -1) + wNW * _sh(v, 1, 1))
+    y = y - (wNE * _sh(v, 1, -1) + wSW * _sh(v, -1, 1))
+    return y
+
+
+def cheb_init_plain(A: StencilOperator, dinv, b, c: float, ca: float,
+                    cb: float):
+    iv = dinv[None]
+    r1 = b - c * _lap9(expand_planes(A, dinv), b)
+    return (1.0 + ca) * c * (iv * b) + cb * (iv * r1)
+
+
+def residual_init_plain(A: StencilOperator, dinv, b, x, c: float):
+    r0 = b - stencil_matvec(A, x)
+    return r0, x + c * (dinv[None] * r0)
+
+
+def cheb_finish_plain(A: StencilOperator, dinv, r0, x1, c: float, ca: float,
+                      cb: float):
+    iv = dinv[None]
+    r1 = r0 - c * _lap9(expand_planes(A, dinv), r0)
+    return x1 + ca * c * (iv * r0) + cb * (iv * r1)
+
+
 # --- kernel wrappers ------------------------------------------------------
 
 def matvec(A: StencilOperator, x: torch.Tensor) -> torch.Tensor:
@@ -260,3 +335,63 @@ def residual_restrict(A: StencilOperator, b: torch.Tensor, x: torch.Tensor):
               "residual_restrict")
     LAUNCHES["residual_restrict"] += 1
     return rc
+
+
+def cheb_init(A: StencilOperator, dinv: torch.Tensor, b: torch.Tensor,
+              c: float, ca: float, cb: float) -> torch.Tensor:
+    """The degree-2 Chebyshev pre-smoother from x = 0 in one pass:
+    x = (1+ca) c Dinv b + cb Dinv (b - c L Dinv b).  Replaces
+    pallas_stencil.pallas_cheb_init (pallas_stencil.py:502); bound by
+    bytes (1 block in, 1 out, 6 planes)."""
+    if not b.is_cuda:
+        return cheb_init_plain(A, dinv, b, c, ca, cb)
+    _check(A, b, extra_planes=(dinv,))
+    lib = _load()
+    B, H, W = b.shape
+    x = torch.empty_like(b)
+    _raise_if(lib.cs_cheb_init(*map(_ptr, A.planes), _ptr(dinv), _ptr(b),
+                               _ptr(x), c, ca, cb, B, H, W,
+                               _stream(b.device)), "cheb_init")
+    LAUNCHES["cheb_init"] += 1
+    return x
+
+
+def residual_init(A: StencilOperator, dinv: torch.Tensor, b: torch.Tensor,
+                  x: torch.Tensor, c: float):
+    """Pass 1 of the warm (post-)smoother: returns (r0, x1) with
+    r0 = b - L x and x1 = x + c Dinv r0.  Replaces
+    pallas_stencil.pallas_residual_init (pallas_stencil.py:631); bound
+    by bytes (2 blocks in, 2 out, 6 planes)."""
+    if not x.is_cuda:
+        return residual_init_plain(A, dinv, b, x, c)
+    _check(A, b, x, extra_planes=(dinv,))
+    lib = _load()
+    B, H, W = x.shape
+    r0, x1 = torch.empty_like(x), torch.empty_like(x)
+    _raise_if(lib.cs_residual_init(*map(_ptr, A.planes), _ptr(dinv),
+                                   _ptr(b), _ptr(x), _ptr(r0), _ptr(x1), c,
+                                   B, H, W, _stream(x.device)),
+              "residual_init")
+    LAUNCHES["residual_init"] += 1
+    return r0, x1
+
+
+def cheb_finish(A: StencilOperator, dinv: torch.Tensor, r0: torch.Tensor,
+                x1: torch.Tensor, c: float, ca: float,
+                cb: float) -> torch.Tensor:
+    """Pass 2 of the warm (post-)smoother:
+    x2 = x1 + ca c Dinv r0 + cb Dinv (r0 - c L Dinv r0).  Replaces
+    pallas_stencil.pallas_cheb_finish (pallas_stencil.py:660); bound by
+    bytes (2 blocks in, 1 out, 6 planes).  A launch of its own: it reads
+    r0 at neighbour offsets, which residual_init must have written."""
+    if not r0.is_cuda:
+        return cheb_finish_plain(A, dinv, r0, x1, c, ca, cb)
+    _check(A, r0, x1, extra_planes=(dinv,))
+    lib = _load()
+    B, H, W = r0.shape
+    x2 = torch.empty_like(r0)
+    _raise_if(lib.cs_cheb_finish(*map(_ptr, A.planes), _ptr(dinv), _ptr(r0),
+                                 _ptr(x1), _ptr(x2), c, ca, cb, B, H, W,
+                                 _stream(r0.device)), "cheb_finish")
+    LAUNCHES["cheb_finish"] += 1
+    return x2

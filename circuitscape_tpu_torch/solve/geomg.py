@@ -14,10 +14,15 @@ the host in float64.
 
 Smoother: degree-2 Chebyshev on D^-1 A, symmetric V(1,1), so the cycle
 is a valid SPD preconditioner for CG.  Its fine work runs in the
-hand-written kernels of solve/cuda_stencil.py: the generic fused
-Chebyshev step, the matvec, and the fused residual + restrict, on every
-level.  (The JAX package also has a premultiplied-plane configuration
-of the same smoother; the two differ only in rounding.)
+hand-written kernels of solve/cuda_stencil.py.  Two configurations, as
+in the JAX package, which differ only in rounding:
+  - fused (levels of at least 64 rows and at most 4094 columns, the
+    JAX package's Pallas gates): the pre-smoother from zero is one
+    cheb_init pass, the post-smoother residual_init then cheb_finish;
+  - generic (other levels, or a hierarchy built with
+    fused_smoother=False): an elementwise Dinv pass and the fused
+    cheb_step, plus a matvec for the post-smoother's residual.
+The residual + restrict of every level is one residual_restrict pass.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .cuda_stencil import cheb_step, matvec, residual_restrict
+from .cuda_stencil import (cheb_finish, cheb_init, cheb_step, matvec,
+                           residual_init, residual_restrict)
 from .stencil import StencilOperator, _sh, operator_from_numpy, \
     stencil_matvec
 
@@ -38,6 +44,16 @@ class GeoMgLevel:
     A: StencilOperator
     inv_diag: torch.Tensor  # (H, W) plain 1/diag (0 on empty cells)
     lam_max: float          # estimate of rho(D^-1 A) for Chebyshev
+    fused: bool = False     # smooths with the premultiplied-Dinv kernels
+
+
+def fused_smoother_supported(shape) -> bool:
+    """Levels that take the fused smoother: the JAX package's gates for
+    its init planes (pallas_stencil.supported: H >= 64) and kernels
+    (cheb_init_supported, warm_smooth_supported: W <= 4094), without
+    their VMEM row-fit checks, which are TPU machinery."""
+    H, W = shape
+    return H >= 64 and W <= 4094
 
 
 @dataclass
@@ -163,11 +179,17 @@ def _build_levels_device(we, ws, wse, wne, nlevels, est_mask):
 
 
 def build_geo_mg_device(S32: StencilOperator, coarse_cells=256,
-                        max_levels=12) -> GeoMgHierarchy:
+                        max_levels=12,
+                        fused_smoother=True) -> GeoMgHierarchy:
     """Hierarchy setup on the device from the (already uploaded) f32
     fine operator; only the per-level lams and the tiny coarsest planes
     (<= coarse_cells) go to the host, where the dense pseudo-inverse
     builds in f64.
+
+    fused_smoother: the counterpart of the JAX package's expand_pallas;
+    on, the levels fused_smoother_supported() admits take the
+    premultiplied-Dinv smoother kernels; off, every level takes the
+    generic configuration.
 
     Levels above 64k cells use the Gershgorin-safe lam = 2.0 (for a
     graph Laplacian rho(D^-1 L) <= 2); smaller levels power-iterate."""
@@ -186,7 +208,9 @@ def build_geo_mg_device(S32: StencilOperator, coarse_cells=256,
         ([lams_dev.to(torch.float64)] if lams_dev is not None else []) +
         [torch.stack(coarsest).to(torch.float64).ravel()]).cpu().numpy()
     lams = packed[:len(shapes)]
-    levels = tuple(GeoMgLevel(A, inv, float(lam))
+    levels = tuple(GeoMgLevel(A, inv, float(lam),
+                              fused_smoother and
+                              fused_smoother_supported(A.shape))
                    for (A, inv), lam in zip(levels_raw, lams))
 
     hc, wc = coarsest[0].shape
@@ -201,20 +225,24 @@ def build_geo_mg_device(S32: StencilOperator, coarse_cells=256,
 
 
 def from_jax_numpy(levels, coarse_pinv, coarse_shape, overcorrect=1.9,
-                   device="cpu", dtype=torch.float32) -> GeoMgHierarchy:
+                   device="cpu", dtype=torch.float32,
+                   fused_smoother=True) -> GeoMgHierarchy:
     """A hierarchy carried across from the JAX package as numpy arrays.
 
     levels: one mapping per level with keys we, ws, wse, wne, diag,
     inv_diag (host arrays) and lam_max (float); coarse_pinv:
-    (hc*wc, hc*wc); coarse_shape: (hc, wc).  Lets a test run this
-    package's V-cycle on exactly the JAX package's hierarchy."""
+    (hc*wc, hc*wc); coarse_shape: (hc, wc); fused_smoother as in
+    build_geo_mg_device.  Lets a test run this package's V-cycle on
+    exactly the JAX package's hierarchy."""
     lv = tuple(
         GeoMgLevel(
             operator_from_numpy([L[k] for k in ("we", "ws", "wse", "wne",
                                                 "diag")], dtype, device),
             torch.as_tensor(np.array(L["inv_diag"]),
                             dtype=dtype, device=device),
-            float(L["lam_max"]))
+            float(L["lam_max"]),
+            fused_smoother and
+            fused_smoother_supported(np.shape(L["diag"])))
         for L in levels)
     pinv = torch.as_tensor(np.array(coarse_pinv), dtype=dtype,
                            device=device)
@@ -243,10 +271,13 @@ CHEB_DEGREE = 2
 
 def _cheb_smooth(L: GeoMgLevel, b, x):
     """Chebyshev polynomial smoother of fixed degree on D^-1 A (Adams et
-    al. recurrence), from x = 0 when x is None.  The post-smoother's
-    residual is one matvec kernel; each recurrence step is one fused
-    cheb_step kernel (the JAX package's configuration without
-    Dinv-premultiplied init planes)."""
+    al. recurrence), from x = 0 when x is None.
+
+    Fused levels run the whole degree-2 smoother as one cheb_init pass
+    (from zero) or residual_init + cheb_finish (warm), with the JAX
+    package's coefficients (geomg.py:626-657).  Other levels take the
+    generic configuration: the post-smoother's residual is one matvec
+    kernel, each recurrence step one fused cheb_step kernel."""
     lmax = L.lam_max
     lmin = lmax / 4.0
     theta = 0.5 * (lmax + lmin)
@@ -254,6 +285,16 @@ def _cheb_smooth(L: GeoMgLevel, b, x):
     sigma = theta / delta
     rho = 1.0 / sigma
     Dinv = L.inv_diag[None]
+
+    if L.fused and CHEB_DEGREE == 2:
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        c = float(1.0 / theta)
+        ca = float(rho_new * rho)
+        cb = float(2.0 * rho_new / delta)
+        if x is None:
+            return cheb_init(L.A, L.inv_diag, b, c, ca, cb)
+        r0, x1 = residual_init(L.A, L.inv_diag, b, x, c)
+        return cheb_finish(L.A, L.inv_diag, r0, x1, c, ca, cb)
 
     r = b if x is None else b - matvec(L.A, x)
     d = (1.0 / theta) * (Dinv * r)

@@ -174,6 +174,53 @@ def stencil_matvec(A: StencilOperator, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def stencil_node_currents(A: StencilOperator, V: torch.Tensor,
+                          cutoff=1e-8, proj=None,
+                          out_dtype=None) -> torch.Tensor:
+    """Node current maps from voltage blocks (B, H, W), on V's device.
+
+    Counterpart of circuitscape_tpu/solve/stencil.py
+    stencil_node_currents: the reference's node current = max(inflow,
+    outflow) with positive/negative branch splitting and the 1e-8*max
+    branch cutoff (src/out.jl:178-290), as shifted-plane arithmetic.
+    The cutoff max is taken per column over the whole grid.  Flow planes
+    are recomputed in the accumulation pass rather than kept from the
+    threshold pass (fewer live blocks); out_dtype=float32 casts V first,
+    as the maps-on path does.  Polygon jobs (proj) are not carried yet
+    (ROADMAP queue 1 item 7)."""
+    if proj is not None:
+        raise NotImplementedError(
+            "polygon node currents are not carried by circuitscape_tpu_torch "
+            "yet (ROADMAP queue 1 item 7)")
+    if out_dtype is not None and V.dtype != out_dtype:
+        V = V.to(out_dtype)
+    dirs = [(0, 1, A.we),                           # E
+            (0, -1, _sh(A.we[None], 0, 1)[0]),      # W
+            (1, 0, A.ws),                           # S
+            (-1, 0, _sh(A.ws[None], 1, 0)[0]),      # N
+            (1, 1, A.wse),                          # SE
+            (-1, -1, _sh(A.wse[None], 1, 1)[0]),    # NW
+            (-1, 1, A.wne),                         # NE
+            (1, -1, _sh(A.wne[None], -1, 1)[0])]    # SW
+    dirs = [(dr, dc, w.to(V.dtype)[None]) for dr, dc, w in dirs]
+
+    # branch-current cutoff threshold per column (max |signed branch|)
+    maxb = torch.zeros(V.shape[0], dtype=V.dtype, device=V.device)
+    for dr, dc, w in dirs:
+        f = w * (_sh(V, -dr, -dc) - V)
+        maxb = torch.maximum(maxb, torch.amax(torch.abs(f), dim=(-2, -1)))
+    thr = (cutoff * maxb)[:, None, None]
+
+    inflow = torch.zeros_like(V)
+    outflow = torch.zeros_like(V)
+    for dr, dc, w in dirs:
+        f = w * (_sh(V, -dr, -dc) - V)
+        f = torch.where(torch.abs(f) < thr, 0.0, f)
+        inflow = inflow + torch.clamp_min(f, 0.0)
+        outflow = outflow + torch.clamp_min(-f, 0.0)
+    return torch.maximum(inflow, outflow)
+
+
 def _make_prec_apply(A, prec, prec_apply):
     """Preconditioner application shared by the CG init and loop (they
     must apply the IDENTICAL operator for CG to be valid); Jacobi when

@@ -1,11 +1,13 @@
 """Where the time of the port's main path goes, on one NVIDIA GPU.
 
-    python3 profile_torch.py [--size 1000] [--points 32] [--trace PATH]
+    python3 profile_torch.py [--size 1000] [--points 32] [--maps]
+                             [--trace PATH]
 
 Runs the bench.py job (seed 42, size x size conductance raster with ~10%
-NODATA, `points` focal points, cg+amg, single precision, shortcut mode)
-through circuitscape_tpu_torch.compute(..., "cuda"): one warm run, then
-one run under torch.profiler.  Prints, as JSON lines:
+NODATA, `points` focal points, cg+amg, single precision, shortcut mode;
+with --maps, the cumulative and max current maps on, which solves every
+pair) through circuitscape_tpu_torch.compute(..., "cuda"): one warm run,
+then one run under torch.profiler.  Prints, as JSON lines:
   - the job's wall time, host-timer sections and solver stats;
   - device time per kernel name (sum and count) over the run, the
     device's busy time (union of kernel intervals) and its idle share
@@ -45,6 +47,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=1000)
     ap.add_argument("--points", type=int, default=32)
+    ap.add_argument("--maps", action="store_true",
+                    help="write the cumulative and max current maps")
     ap.add_argument("--trace", default="",
                     help="write the Chrome trace to this path")
     args = ap.parse_args()
@@ -63,6 +67,9 @@ def main():
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as d:
         cfg, _ = make_job(d, args.size, args.size, args.points)
+        if args.maps:
+            cfg.update(write_cum_cur_map_only="True",
+                       write_max_cur_maps="True")
         cst.compute(cfg, device="cuda")           # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -85,6 +92,7 @@ def main():
     busy = _busy_us(kernels) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     print(json.dumps({"size": args.size, "points": args.points,
+                      "maps": args.maps,
                       "wall_s": wall, "timers_s": timers,
                       "cg_iters": st.get("cg_iters"),
                       "solve_s": st.get("solve_s")}))

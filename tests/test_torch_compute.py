@@ -92,8 +92,10 @@ def test_golden_sgverify4_maps_off(tmp_path, monkeypatch):
     ({"data_type": "network"}, "item 9"),
     ({"solver": "cholmod"}, "item 9"),
     ({"use_polygons": "True"}, "item 7"),
-    ({"write_cur_maps": "True"}, "item 6"),
-    ({"write_volt_maps": "True"}, "item 6"),
+    # maps on: a 20x20 grid is below CS_PAIRWISE_DEVICE_MIN, so the JAX
+    # package takes its general sparse-graph path
+    ({"write_cur_maps": "True"}, "item 9"),
+    ({"write_volt_maps": "True"}, "item 9"),
 ])
 def test_uncarried_scenarios_raise(tmp_path, override, item):
     cfg = _bench_job(str(tmp_path), 20, 20, 3)
@@ -115,16 +117,34 @@ def test_uncarried_corpus_jobs_raise(tmp_path, monkeypatch, ini, item):
         cst.compute(cfg, device="cpu")
 
 
-def test_exclude_pairs_raise(tmp_path):
-    """Exclude pairs turn the shortcut off; the per-pair path is not
-    carried yet."""
+def _exclude_job(tmp_path):
     cfg = _bench_job(str(tmp_path), 24, 24, 3)
     pairs = tmp_path / "pairs.txt"
     pairs.write_text("mode exclude\n1 2\n")
-    cfg.update(use_included_pairs="True", included_pairs_file=str(pairs),
-               output_file=str(tmp_path / "x.out"))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    cfg.update(use_included_pairs="True", included_pairs_file=str(pairs))
+    return cfg
+
+
+def test_exclude_pairs_raise(tmp_path):
+    """Exclude pairs turn the shortcut off; below CS_PAIRWISE_DEVICE_MIN
+    cells the JAX package takes its general sparse-graph path, which is
+    not carried yet."""
+    cfg = _exclude_job(tmp_path)
+    cfg.update(output_file=str(tmp_path / "x.out"))
+    with pytest.raises(NotImplementedError, match="item 9"):
         cst.compute(cfg, device="cpu")
+
+
+def test_exclude_pairs_match_jax(tmp_path, monkeypatch):
+    """The same job on the stencil device path (CS_PAIRWISE_DEVICE_MIN=1)
+    solves every pair but the excluded one, as the JAX package does."""
+    monkeypatch.setenv("CS_PAIRWISE_DEVICE_MIN", "1")
+    cfg = _exclude_job(tmp_path)
+    rt = cst.compute(dict(cfg, output_file=str(tmp_path / "t.out")),
+                     device="cpu")
+    rj = cs.compute(dict(cfg, output_file=str(tmp_path / "j.out")))
+    assert rt[1, 2] == rt[2, 1] == -1
+    assert np.max(np.abs(rt - rj) / np.maximum(np.abs(rj), 1e-30)) <= 1e-5
 
 
 def test_chunked_resume_matches_jax(tmp_path, monkeypatch):

@@ -57,16 +57,29 @@ def test_kernels_match_plain(dev, B, shape):
     _close(cs.cheb_step(A, dinv, b, d, x, 0.37, 1.21),
            cs.cheb_step_plain(A, dinv, b, d, x, 0.37, 1.21))
     _close(cs.residual_restrict(A, b, x), cs.residual_restrict_plain(A, b, x))
+    c, ca, cb = 0.8, 0.33, 1.07
+    _close(cs.cheb_init(A, dinv, b, c, ca, cb),
+           cs.cheb_init_plain(A, dinv, b, c, ca, cb))
+    _close(cs.residual_init(A, dinv, b, x, c),
+           cs.residual_init_plain(A, dinv, b, x, c))
+    _close(cs.cheb_finish(A, dinv, d, x, c, ca, cb),
+           cs.cheb_finish_plain(A, dinv, d, x, c, ca, cb))
     torch.cuda.synchronize()
     assert all(n == 1 for n in cs.LAUNCHES.values())
 
 
 def test_wrappers_refuse_what_kernels_do_not_take(dev):
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
-    A, _, (x, _, _) = _operator(16, 16, dev)
+    A, dinv, (x, b, _) = _operator(16, 16, dev)
     with pytest.raises(ValueError):
         cs.matvec(A, x.double())
     with pytest.raises(ValueError):
         cs.matvec(A, x[:, :, :8])
     with pytest.raises(ValueError):
         cs.matvec(A, x.transpose(1, 2))
+    with pytest.raises(ValueError):
+        cs.cheb_init(A, dinv.double(), b, 0.8, 0.3, 1.1)
+    with pytest.raises(ValueError):
+        cs.residual_init(A, dinv, b[:, :, :8], x[:, :, :8], 0.8)
+    with pytest.raises(ValueError):
+        cs.cheb_finish(A, dinv, x.transpose(1, 2), b, 0.8, 0.3, 1.1)

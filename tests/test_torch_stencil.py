@@ -161,7 +161,8 @@ def test_launch_counters_ignore_plain_calls():
     cs.cheb_step(T, torch.as_tensor(dinv), xt, xt, xt, 0.5, 0.5)
     cs.residual_restrict(T, xt, xt)
     assert set(cs.LAUNCHES) == {"matvec", "matvec_pap", "cheb_step",
-                                "residual_restrict"}
+                                "residual_restrict", "cheb_init",
+                                "residual_init", "cheb_finish"}
     assert all(v == 0 for v in cs.LAUNCHES.values())
 
 
