@@ -6,13 +6,17 @@ Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from circuitscape_tpu_torch/csrc with nvcc;
      print nvcc's version and the card's name and power limit;
   2. hold each kernel against its plain-torch version on the card, at
-     B in {1, 2, 3, 4, 8, 32} and grids with odd sides, a width that is
-     not a multiple of 32, and the main path's 1024 x 1024 (tolerance:
-     max |kernel - plain| <= 1e-5 * max |plain|, float32 sum order);
+     B in {1, 2, 3, 4, 5, 8} on grids from 1 x 1 up, with odd sides and
+     widths that are not a multiple of 32 or 4, and at B = 32 on those
+     and the main path's 1024 x 1024 (tolerance: max |kernel - plain|
+     <= 1e-5 * max |plain|, float32 sum order); require matvec_pap to
+     give bit-identical results on two calls with the same input;
      time each kernel and its plain version with CUDA events at the main
      path's shapes, beside the least time the card could take and, for
      matvec (the one with a single-call library form), a CSR sparse
-     product;
+     product; time each kernel at B = 32 on every level shape of the
+     bench job's hierarchy (1024^2 down to 32^2) where the main path
+     launches it, beside its byte bound, one line per kernel and level;
   3. drive the main path: the bench.py job (seed 42, 1000 x 1000
      conductance raster with ~10% NODATA, 32 focal points, cg+amg,
      single precision, shortcut mode) through compute(..., "cuda"):
@@ -53,9 +57,20 @@ sys.path.insert(0, HERE)
 import torch  # noqa: E402
 
 TOL = 1e-5
-BATCHES = (1, 2, 3, 4, 8, 32)
-SHAPES = ((37, 53), (130, 100), (257, 333), (1024, 1024))
+BATCHES = (1, 2, 3, 4, 5, 8, 32)
+SHAPES = ((1, 1), (2, 3), (31, 33), (37, 53), (64, 100), (129, 257),
+          (130, 100), (257, 333), (1024, 1024))
 MAIN_B, MAIN_HW = 32, (1024, 1024)
+# the bench job's multigrid levels (1000 x 1000 bucketed to 1024^2), and
+# the levels where its V-cycle (or, for matvec_pap, its CG loop) launches
+# each kernel: the fused smoother on levels of 64 rows or more, the
+# generic one (cheb_step, matvec) below
+LEVELS = tuple((n, n) for n in (1024, 512, 256, 128, 64, 32))
+LEVEL_KERNELS = (
+    ("matvec", LEVELS[-1:]), ("matvec_pap", LEVELS[:1]),
+    ("cheb_step", LEVELS[-1:]), ("residual_restrict", LEVELS),
+    ("cheb_init", LEVELS[:-1]), ("residual_init", LEVELS[:-1]),
+    ("cheb_finish", LEVELS[:-1]))
 
 # float32 rate outside the tensor cores (NVIDIA data sheets); first
 # match of torch.cuda.get_device_name() wins
@@ -105,11 +120,16 @@ def kernel_bytes(name, B, H, W) -> int:
 
 
 def cuda_ms(fn, n=20, warm=3) -> float:
+    """Device ms per call of fn over n back-to-back calls.  A spin
+    kernel (~100k cycles per call) holds the card while the host queues
+    the calls, so a kernel shorter than its launch's host cost is timed
+    on the device and not at the host's enqueue rate."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000 * n)
     t0.record()
     for _ in range(n):
         fn()
@@ -278,6 +298,14 @@ def phase_kernels(gmap, dev, dev_name):
             for name, replaces, fl in KERNELS:
                 kern, plain = _pairs(name, A, dinv, blocks)
                 got, ref = _as_tuple(kern()), _as_tuple(plain())
+                if name == "matvec_pap":
+                    # fixed-order block sums: p.Ap must repeat to the bit
+                    again = kern()
+                    if not all(torch.equal(a, b_)
+                               for a, b_ in zip(got, again)):
+                        raise AssertionError(
+                            f"matvec_pap B={B} {H}x{W}: two calls on the "
+                            f"same input differ")
                 torch.cuda.synchronize()
                 for g_, r_ in zip(got, ref):
                     err = float((g_ - r_).abs().max())
@@ -323,7 +351,27 @@ def phase_kernels(gmap, dev, dev_name):
              f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at "
              f"B={MAIN_B} {MAIN_HW}")
+    time_levels(gmap, dev, rate)
     return rows
+
+
+def time_levels(gmap, dev, rate):
+    """Every kernel at B = 32 on each level shape of the bench hierarchy
+    where the main path launches it, beside its byte bound.  Each time is
+    the least of three runs of 50 launches: on the small levels a run
+    whose host falls behind the spin kernel reads several times slow."""
+    rng = np.random.default_rng(11)
+    for H, W in LEVELS:
+        A, dinv, blocks = _inputs(gmap, MAIN_B, H, W, rng, dev)
+        for name, levels in LEVEL_KERNELS:
+            if (H, W) not in levels:
+                continue
+            kern, _ = _pairs(name, A, dinv, blocks)
+            ms = min(cuda_ms(kern, n=50) for _ in range(3))
+            bound = kernel_bytes(name, MAIN_B, H, W) / rate * 1e3
+            note(f"level {name} B={MAIN_B} {H}x{W}: {ms:.4f} ms, byte "
+                 f"bound {bound:.4f} ms, {100 * bound / ms:.1f}% of bound")
+        del A, dinv, blocks
 
 
 def phase_main(cfg, rows):

@@ -20,19 +20,43 @@
 // in registers from the five base planes and dinv, once per cell.
 //
 // Every kernel here is bound by memory bytes (~20 flops per cell and column
-// against at least 8 bytes).  The design moves each byte once: a thread owns
-// one cell (residual_restrict: a vertical pair of cells), loads its nine
-// weights and the nine offsets of its x reads into registers once, and loops
-// over the B columns, so the planes are read once per launch and not once
-// per column; x's neighbour reads hit L1, where the neighbouring threads of
-// the 32 x 8 tile have brought them.  Neighbours outside the grid get weight
-// 0 and an offset clamped into the grid, so the column loop has no branches.
-// The column loop stays rolled (cheb_step: unrolled by 2): on the H100,
-// unrolling further raised the register count and lost more to occupancy
-// than it gained in loads in flight.
+// against at least 8 bytes), and each moves every byte once: the weights are
+// read once per block, not once per column, because a block loops over the
+// B columns (or over a chunk of them) with the weights it needs held in
+// registers.
+//
+// matvec, cheb_step, cheb_init, residual_init, cheb_finish: a thread owns one
+// cell of a 32 x 8 tile, loads its nine weights and the nine offsets of its x
+// reads into registers once, and loops over all B columns; x's neighbour
+// reads hit L1, where the neighbouring threads of the tile have brought them.
+// Neighbours outside the grid get weight 0 and an offset clamped into the
+// grid, so the column loop has no branches.  The column loop stays rolled
+// (cheb_step: unrolled by 2): on the H100, unrolling further raised the
+// register count and lost more to occupancy than it gained in loads in
+// flight.
+//
+// matvec_pap and residual_restrict (the two whose first design, one thread
+// per cell or cell pair through L1, reached under half of the byte bound)
+// stage their inputs instead: for each column, the block copies x's tile
+// with a one-cell halo (residual_restrict: and b's tile) into shared memory
+// with cp.async, into a ring of NSTAGE buffers, so the copies of the next two
+// columns are in flight while this column's stencils are computed from
+// shared memory.  Cells outside the grid are zero-filled by the copy, so
+// they read as zero without clamped offsets, and every width takes the same
+// 4-byte copies (no 16-byte alignment needed, unlike TMA).  Each thread owns
+// several cells (matvec_pap: a vertical strip of MP_R in one fine column;
+// residual_restrict: one 2 x 2 fine patch) and holds their weights in
+// registers, loaded while the first copies fly.  A block owns one tile and a
+// chunk of the B columns
+// (blockIdx.x), chosen per launch so the grid fills at least two waves of
+// the card: small levels spread the columns over blocks rather than walk them
+// in sequence.  The chunk index varies fastest, so the blocks of one tile run
+// together and share its weights in L2.
+//
 // Each entry point launches on the given stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError().
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -109,6 +133,7 @@ __device__ __forceinline__ float lap(const Stencil9& k,
     return y;
 }
 
+// Replaces _kernel / pallas_matvec (pallas_stencil.py:175, 900).  y = L x.
 __global__ void __launch_bounds__(NT)
 matvec_kernel(Planes P, const float* __restrict__ x, float* __restrict__ y,
               int B, int H, int W) {
@@ -124,62 +149,197 @@ matvec_kernel(Planes P, const float* __restrict__ x, float* __restrict__ y,
     }
 }
 
-// y = L x, and part[b, block] = sum over the block's cells of x * y.  The
-// block sum is a fixed-order tree (warp shuffles, then the warps' sums in
-// warp order), so the result is deterministic; no atomics.  Columns go in
-// groups of 32, one barrier pair per group.
-__global__ void __launch_bounds__(NT)
-matvec_pap_kernel(Planes P, const float* __restrict__ x, float* __restrict__ y,
-                  float* __restrict__ part, int B, int H, int W) {
-    __shared__ float warp_sum[32][NWARP];
-    const int j = blockIdx.x * TX + threadIdx.x;
-    const int i = blockIdx.y * TY + threadIdx.y;
-    const bool inside = i < H && j < W;
-    const int tid = threadIdx.y * TX + threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int nblk = gridDim.x * gridDim.y;
-    const int blk = blockIdx.y * gridDim.x + blockIdx.x;
-    Stencil9 k;
-    if (inside) {
-        k = load_stencil(P, i, j, H, W);
-    } else {
+// --- staged kernels: each column's tiles in shared memory ----------------
+
+constexpr int NSTAGE = 3;         // ring buffers: two columns in flight
+
+// The nine weights of cell (i, j) in Stencil9's order, 0 where the weight's
+// source cell is outside the grid, and all 0 for a cell outside the grid
+// (odd sides: its residual is 0, as zero padding makes it).  Not built on
+// load_stencil: its neighbour masks and offsets, which the staged kernels
+// do not need, made residual_restrict ~3 us slower a launch at 128^2 and
+// matvec_pap ~6% slower at 1024^2 on the H100.
+__device__ __forceinline__ void load_weights(const Planes& P, int i, int j,
+                                             int H, int W, float (&w)[9]) {
+    const bool in = i < H && j < W;
+    w[0] = in ? ld(P.diag, i, j, H, W) : 0.0f;
+    w[1] = in ? ld(P.we, i, j, H, W) : 0.0f;
+    w[2] = in ? ld(P.we, i, j - 1, H, W) : 0.0f;
+    w[3] = in ? ld(P.ws, i, j, H, W) : 0.0f;
+    w[4] = in ? ld(P.ws, i - 1, j, H, W) : 0.0f;
+    w[5] = in ? ld(P.wse, i, j, H, W) : 0.0f;
+    w[6] = in ? ld(P.wse, i - 1, j - 1, H, W) : 0.0f;
+    w[7] = in ? ld(P.wne, i, j, H, W) : 0.0f;
+    w[8] = in ? ld(P.wne, i + 1, j - 1, H, W) : 0.0f;
+}
+
+// (L x) at the centre of a 3 x 3 window n[row][col] of x, in lap()'s order.
+__device__ __forceinline__ float lap3x3(const float (&w)[9], float n00,
+                                        float n01, float n02, float n10,
+                                        float n11, float n12, float n20,
+                                        float n21, float n22) {
+    float y = w[0] * n11;
+    y -= w[1] * n12;
+    y -= w[2] * n10;
+    y -= w[3] * n21;
+    y -= w[4] * n01;
+    y -= w[5] * n22;
+    y -= w[6] * n00;
+    y -= w[7] * n02;
+    y -= w[8] * n20;
+    return y;
+}
+
+// A ROWS x COLS window of one (H, W) plane, staged by the whole block.  Its
+// cells' offsets in the plane are the same for every column, so each thread
+// computes those of its K cells once; -1 marks a cell outside the grid,
+// which the copy zero-fills.
+template <int ROWS, int COLS>
+struct Window {
+    static constexpr int N = ROWS * COLS;
+    static constexpr int K = (N + NT - 1) / NT;
+    int src[K];
+
+    __device__ __forceinline__ Window(int gi0, int gj0, int H, int W) {
 #pragma unroll
-        for (int q = 0; q < 9; ++q) {
-            k.w[q] = 0.0f;
-            k.off[q] = 0;
+        for (int k = 0; k < K; ++k) {
+            const int e = threadIdx.x + k * NT;
+            const int r = e / COLS;
+            const int gi = gi0 + r;
+            const int gj = gj0 + e - r * COLS;
+            src[k] = (e < N && gi >= 0 && gi < H && gj >= 0 && gj < W)
+                         ? gi * W + gj : -1;
         }
     }
-    const size_t plane = (size_t)H * W;
-    const int at = inside ? i * W + j : 0;
-    for (int b0 = 0; b0 < B; b0 += 32) {
-        const int nb = min(32, B - b0);
-#pragma unroll 1
-        for (int c = 0; c < nb; ++c) {
-            const size_t base = (size_t)(b0 + c) * plane;
-            float v = 0.0f;
-            if (inside) {
-                const float yv = lap(k, x + base);
-                y[base + at] = yv;
-                v = __ldg(x + base + at) * yv;
-            }
+
+    // Start the copy of plane xb's window into s (row stride COLS).
+    __device__ __forceinline__ void stage(float* s,
+                                          const float* __restrict__ xb) const {
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-                v += __shfl_down_sync(0xffffffffu, v, off);
+        for (int k = 0; k < K; ++k) {
+            const int e = threadIdx.x + k * NT;
+            if (e < N) {
+                const bool ok = src[k] >= 0;
+                __pipeline_memcpy_async(s + e, xb + (ok ? src[k] : 0),
+                                        sizeof(float), ok ? 0 : sizeof(float));
             }
-            if (lane == 0) warp_sum[c][warp] = v;
         }
-        __syncthreads();
-        if (tid < nb) {
-            float s = 0.0f;
+    }
+};
+
+// The nb columns of a block's chunk go through a ring of NSTAGE buffers.
+// fill(buf, c) starts the copies of column c into buf.  ring_start starts
+// columns 0 .. NSTAGE - 2, so a kernel can load its weights while they are
+// in flight; ring_walk then runs body(c, buf) for every column once its
+// copies have landed, with those of columns c + 1 and c + 2 in flight.  One
+// barrier per column: it also guarantees that every thread is done with
+// column c - 1's buffer, which the copies issued right after it refill.
+template <class Stage, class Fill>
+__device__ __forceinline__ void ring_start(Stage* ring, int nb, Fill fill) {
 #pragma unroll
-            for (int w = 0; w < NWARP; ++w) s += warp_sum[tid][w];
-            part[(size_t)(b0 + tid) * nblk + blk] = s;
-        }
-        __syncthreads();
+    for (int s = 0; s < NSTAGE - 1; ++s) {
+        if (s < nb) fill(ring[s], s);
+        __pipeline_commit();
     }
 }
 
+template <class Stage, class Fill, class Body>
+__device__ __forceinline__ void ring_walk(Stage* ring, int nb, Fill fill,
+                                          Body body) {
+#pragma unroll 1
+    for (int c = 0; c < nb; ++c) {
+        __pipeline_wait_prior(NSTAGE - 2);
+        __syncthreads();
+        const int next = c + NSTAGE - 1;
+        if (next < nb) fill(ring[next % NSTAGE], next);
+        __pipeline_commit();
+        body(c, ring[c % NSTAGE]);
+    }
+}
+
+// matvec_pap: a 32-column x MP_TY-row tile; thread (tx, ty) owns the strip
+// of MP_R cells (rows ty*MP_R ...) of fine column tx.
+constexpr int MP_R = 4;
+constexpr int MP_TX = 32;
+constexpr int MP_TY = NWARP * MP_R;
+constexpr int MP_ROWS = MP_TY + 2;
+constexpr int MP_COLS = MP_TX + 2;
+
+// Replaces _mv_dot_kernel / pallas_matvec_pap (pallas_stencil.py:820, 856).
+// y = L x, and part[b, tile] = sum over the tile's cells of x * y.  Bound by
+// bytes (x in, y out, five planes).  x is staged through the ring; each
+// thread slides down its strip reading three x values per row from shared
+// memory (each x value about 3 times per strip, not 9), keeps the strip's
+// 36 weights in registers and its x . y in one register.  The block then
+// reduces once per column, in a fixed order (warp shuffles, then the warps'
+// sums in warp order), so p.Ap repeats to the bit; no atomics.  Columns go
+// in groups of 32, one extra barrier per group.
+__global__ void __launch_bounds__(NT)
+matvec_pap_kernel(Planes P, const float* __restrict__ x, float* __restrict__ y,
+                  float* __restrict__ part, int B, int cb, int H, int W) {
+    __shared__ __align__(16) float ring[NSTAGE][MP_ROWS * MP_COLS];
+    __shared__ float warp_sum[32][NWARP];
+    const int tid = threadIdx.x;
+    const int tx = tid & 31;
+    const int ty = tid >> 5;
+    const int j = blockIdx.y * MP_TX + tx;
+    const int i0 = blockIdx.z * MP_TY + ty * MP_R;
+    const int ntile = gridDim.y * gridDim.z;
+    const int tile = blockIdx.z * gridDim.y + blockIdx.y;
+    const int b0 = blockIdx.x * cb;
+    const int nb = min(cb, B - b0);
+    const Window<MP_ROWS, MP_COLS> win((int)blockIdx.z * MP_TY - 1,
+                                       (int)blockIdx.y * MP_TX - 1, H, W);
+    const size_t plane = (size_t)H * W;
+    const auto fill = [&](float* buf, int c) {
+        win.stage(buf, x + (b0 + c) * plane);
+    };
+    ring_start(ring, nb, fill);
+    float w[MP_R][9];
+#pragma unroll
+    for (int r = 0; r < MP_R; ++r) load_weights(P, i0 + r, j, H, W, w[r]);
+    const bool col_in = j < W;
+    ring_walk(ring, nb, fill, [&](int c, const float* t) {
+        // window row of cell i0 + r is ty*MP_R + r + 1, its column tx + 1
+        const float* s = t + ty * MP_R * MP_COLS + tx;
+        float n[MP_R + 2][3];
+#pragma unroll
+        for (int r = 0; r < MP_R + 2; ++r) {
+#pragma unroll
+            for (int q = 0; q < 3; ++q) n[r][q] = s[r * MP_COLS + q];
+        }
+        float* yb = y + (b0 + c) * plane;
+        float v = 0.0f;
+#pragma unroll
+        for (int r = 0; r < MP_R; ++r) {
+            const float yv = lap3x3(w[r], n[r][0], n[r][1], n[r][2],
+                                    n[r + 1][0], n[r + 1][1], n[r + 1][2],
+                                    n[r + 2][0], n[r + 2][1], n[r + 2][2]);
+            if (col_in && i0 + r < H) yb[(size_t)(i0 + r) * W + j] = yv;
+            v += n[r + 1][1] * yv;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            v += __shfl_down_sync(0xffffffffu, v, off);
+        }
+        const int g = c & 31;
+        if (tx == 0) warp_sum[g][ty] = v;
+        if (g == 31 || c == nb - 1) {
+            // a group of up to 32 columns is done: one thread per column
+            // adds the warps' sums in warp order.  The ring's barrier at
+            // the next column keeps warp_sum from being overwritten first.
+            __syncthreads();
+            if (tid <= g) {
+                float sum = 0.0f;
+#pragma unroll
+                for (int k = 0; k < NWARP; ++k) sum += warp_sum[tid][k];
+                part[(size_t)(b0 + c - g + tid) * ntile + tile] = sum;
+            }
+        }
+    });
+}
+
+// Replaces _cheb_kernel / pallas_cheb_step (pallas_stencil.py:307, 341).
 // r' = r - L d;  d' = ca d + cb dinv r';  x' = x + d'.
 __global__ void __launch_bounds__(NT)
 cheb_step_kernel(Planes P, const float* __restrict__ dinv,
@@ -206,49 +366,100 @@ cheb_step_kernel(Planes P, const float* __restrict__ dinv,
     }
 }
 
-// rc[b, I, J] = sum over the fine cells (2I + a, 2J + c), a, c in {0, 1},
-// inside the grid, of (b - L x); odd H or W restrict as if zero-padded.  A
-// thread owns the vertical pair (2I, j), (2I + 1, j) of fine column j; the
-// even lane of each lane pair adds its odd neighbour's pair sum and writes
-// coarse cell (I, j / 2).  All lanes stay for the shuffle.
+// residual_restrict: a 32 x 8 tile of coarse cells; thread (tx, ty) owns
+// coarse cell (ty, tx) of it, the 2 x 2 fine patch at (2ty, 2tx).  A stage of
+// the ring holds x's window over the tile's 16 fine rows and 64 columns with
+// a one-cell halo, and one more column each side so that every patch starts
+// at an even (8-byte aligned) offset, and b's window over the tile.
+constexpr int RR_TX = 32;
+constexpr int RR_TY = NWARP;
+constexpr int RR_ROWS = 2 * RR_TY + 2;
+constexpr int RR_COLS = 2 * RR_TX + 4;
+
+struct RRStage {
+    float x[RR_ROWS * RR_COLS];
+    float b[2 * RR_TY * 2 * RR_TX];
+};
+
+// Replaces _rr_kernel / pallas_residual_restrict (pallas_stencil.py:724,
+// 761).  rc[b, I, J] = sum over the fine cells (2I + a, 2J + c), a, c in
+// {0, 1}, inside the grid, of (b - L x); odd H or W restrict as if
+// zero-padded.  Bound by bytes (x and b in, the quarter-size rc out, five
+// planes; the full-size residual is never written).  x and b are staged
+// through the ring; a thread reads its patch's 4 x 4 neighbourhood of x as
+// three float2 per row and its 2 x 2 of b as two, keeps the patch's 36
+// weights in registers, sums its four residuals in registers and writes one
+// coarse cell: consecutive threads, consecutive cells.
 __global__ void __launch_bounds__(NT)
 residual_restrict_kernel(Planes P, const float* __restrict__ bvec,
                          const float* __restrict__ x, float* __restrict__ rc,
-                         int B, int H, int W) {
+                         int B, int cb, int H, int W) {
+    __shared__ __align__(16) RRStage ring[NSTAGE];
+    const int tid = threadIdx.x;
+    const int tx = tid & 31;
+    const int ty = tid >> 5;
     const int Hc = (H + 1) / 2;
     const int Wc = (W + 1) / 2;
-    const int j = blockIdx.x * TX + threadIdx.x;
-    const int I = blockIdx.y * TY + threadIdx.y;
-    const bool top = I < Hc && j < W;            // fine row 2I is inside
-    const bool bot = top && 2 * I + 1 < H;       // fine row 2I + 1 too
-    Stencil9 k0, k1;
-#pragma unroll
-    for (int q = 0; q < 9; ++q) {
-        k0.w[q] = k1.w[q] = 0.0f;
-        k0.off[q] = k1.off[q] = 0;
-    }
-    if (top) k0 = load_stencil(P, 2 * I, j, H, W);
-    if (bot) k1 = load_stencil(P, 2 * I + 1, j, H, W);
-    const int at0 = top ? 2 * I * W + j : 0;
-    const int at1 = bot ? at0 + W : 0;
-    const bool writer = (threadIdx.x & 1) == 0 && I < Hc && j / 2 < Wc &&
-                        j < W;
+    const int I = blockIdx.z * RR_TY + ty;
+    const int J = blockIdx.y * RR_TX + tx;
+    const bool owns = I < Hc && J < Wc;   // the coarse cell is inside
+    const int b0 = blockIdx.x * cb;
+    const int nb = min(cb, B - b0);
+    // the tile's first fine cell
+    const int gi0 = 2 * (int)blockIdx.z * RR_TY;
+    const int gj0 = 2 * (int)blockIdx.y * RR_TX;
+    const Window<RR_ROWS, RR_COLS> xwin(gi0 - 1, gj0 - 2, H, W);
+    const Window<2 * RR_TY, 2 * RR_TX> bwin(gi0, gj0, H, W);
     const size_t plane = (size_t)H * W;
     const size_t cplane = (size_t)Hc * Wc;
-    const size_t cat = (size_t)I * Wc + j / 2;
-#pragma unroll 1
-    for (int b = 0; b < B; ++b) {
-        const float* xb = x + b * plane;
-        const float* bb = bvec + b * plane;
-        float s = 0.0f;
-        if (top) s = __ldg(bb + at0) - lap(k0, xb);
-        if (bot) s += __ldg(bb + at1) - lap(k1, xb);
-        s += __shfl_down_sync(0xffffffffu, s, 1);
-        if (writer) rc[b * cplane + cat] = s;
+    const auto fill = [&](RRStage& st, int c) {
+        xwin.stage(st.x, x + (b0 + c) * plane);
+        bwin.stage(st.b, bvec + (b0 + c) * plane);
+    };
+    ring_start(ring, nb, fill);
+    float w[2][2][9];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+            load_weights(P, owns ? 2 * I + a : H, 2 * J + c, H, W, w[a][c]);
+        }
     }
+    ring_walk(ring, nb, fill, [&](int c, const RRStage& st) {
+        // the patch's neighbourhood: fine rows 2I - 1 .. 2I + 2 are x window
+        // rows 2ty .. 2ty + 3; fine columns 2J - 1 .. 2J + 2 are x window
+        // columns 2tx + 1 .. 2tx + 4, read as the float2 pairs at 2tx,
+        // 2tx + 2 and 2tx + 4
+        const float* s = st.x + 2 * ty * RR_COLS + 2 * tx;
+        float n[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const float2* p = reinterpret_cast<const float2*>(s + r * RR_COLS);
+            const float2 p0 = p[0], p1 = p[1], p2 = p[2];
+            n[r][0] = p0.y;
+            n[r][1] = p1.x;
+            n[r][2] = p1.y;
+            n[r][3] = p2.x;
+        }
+        float sum = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+            const float2 bp = *reinterpret_cast<const float2*>(
+                st.b + (2 * ty + a) * 2 * RR_TX + 2 * tx);
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                sum += (q ? bp.y : bp.x) -
+                       lap3x3(w[a][q], n[a][q], n[a][q + 1], n[a][q + 2],
+                              n[a + 1][q], n[a + 1][q + 1], n[a + 1][q + 2],
+                              n[a + 2][q], n[a + 2][q + 1], n[a + 2][q + 2]);
+            }
+        }
+        if (owns) rc[(b0 + c) * cplane + (size_t)I * Wc + J] = sum;
+    });
 }
 
-// The degree-2 Chebyshev smoother from x = 0 in one pass:
+// Replaces _cheb_init_kernel / pallas_cheb_init (pallas_stencil.py:473,
+// 502).  The degree-2 Chebyshev smoother from x = 0 in one pass:
 //   x = (1 + ca) c dinv b + cb dinv (b - c L (dinv b)).
 __global__ void __launch_bounds__(NT)
 cheb_init_kernel(Planes P, const float* __restrict__ dinv,
@@ -271,7 +482,8 @@ cheb_init_kernel(Planes P, const float* __restrict__ dinv,
     }
 }
 
-// Pass 1 of the warm smoother: r0 = b - L x;  x1 = x + c dinv r0.
+// Replaces _res_init_kernel / pallas_residual_init (pallas_stencil.py:573,
+// 631).  Pass 1 of the warm smoother: r0 = b - L x;  x1 = x + c dinv r0.
 __global__ void __launch_bounds__(NT)
 residual_init_kernel(Planes P, const float* __restrict__ dinv,
                      const float* __restrict__ bvec,
@@ -295,7 +507,8 @@ residual_init_kernel(Planes P, const float* __restrict__ dinv,
     }
 }
 
-// Pass 2 of the warm smoother:
+// Replaces _cheb_fin_kernel / pallas_cheb_finish (pallas_stencil.py:595,
+// 660).  Pass 2 of the warm smoother:
 //   x2 = x1 + ca c dinv r0 + cb dinv (r0 - c L (dinv r0)).
 // Reads r0 at neighbour offsets, so pass 1 must have written all of it.
 __global__ void __launch_bounds__(NT)
@@ -332,13 +545,36 @@ inline int launch_error(int B, int H, int W) {
     return -1;
 }
 
+// Grid of a staged kernel over tiles_x x tiles_y tiles: x is the chunk of
+// columns, fastest, so that the chunks of one tile run side by side.  Each
+// chunk holds cb columns (cb is returned): the most that still gives the
+// card two waves of resident blocks, so the weights are read as few times
+// as the card's occupancy allows.  A failed query leaves its error for the
+// caller's cudaGetLastError().
+template <class Kernel>
+dim3 chunked_grid(Kernel kernel, int tiles_x, int tiles_y, int B, int* cb) {
+    int dev = 0, sms = 1, per_sm = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, 0);
+    const long want = 2L * sms * (per_sm > 0 ? per_sm : 1);
+    const long tiles = (long)tiles_x * tiles_y;
+    long chunks = (want + tiles - 1) / tiles;
+    if (chunks > B) chunks = B;
+    if (chunks < 1) chunks = 1;
+    *cb = (B + (int)chunks - 1) / (int)chunks;
+    return dim3((B + *cb - 1) / *cb, tiles_x, tiles_y);
+}
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
 }  // namespace
 
 extern "C" {
 
+// matvec_pap's partial sums per column: one per tile of the grid.
 int cs_matvec_pap_blocks(int H, int W) {
-    const dim3 g = tiles(H, W);
-    return (int)(g.x * g.y);
+    return ceil_div(W, MP_TX) * ceil_div(H, MP_TY);
 }
 
 int cs_matvec(const float* we, const float* ws, const float* wse,
@@ -358,8 +594,11 @@ int cs_matvec_pap(const float* we, const float* ws, const float* wse,
     const int bad = launch_error(B, H, W);
     if (bad >= 0) return bad;
     const Planes P{we, ws, wse, wne, diag};
-    matvec_pap_kernel<<<tiles(H, W), dim3(TX, TY), 0,
-                        (cudaStream_t)stream>>>(P, x, y, part, B, H, W);
+    int cb = B;
+    const dim3 grid = chunked_grid(matvec_pap_kernel, ceil_div(W, MP_TX),
+                                   ceil_div(H, MP_TY), B, &cb);
+    matvec_pap_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+        P, x, y, part, B, cb, H, W);
     return (int)cudaGetLastError();
 }
 
@@ -383,9 +622,12 @@ int cs_residual_restrict(const float* we, const float* ws, const float* wse,
     const int bad = launch_error(B, H, W);
     if (bad >= 0) return bad;
     const Planes P{we, ws, wse, wne, diag};
-    // one thread per fine column and coarse row
-    residual_restrict_kernel<<<tiles((H + 1) / 2, W), dim3(TX, TY), 0,
-                               (cudaStream_t)stream>>>(P, b, x, rc, B, H, W);
+    int cb = B;
+    const dim3 grid = chunked_grid(residual_restrict_kernel,
+                                   ceil_div((W + 1) / 2, RR_TX),
+                                   ceil_div((H + 1) / 2, RR_TY), B, &cb);
+    residual_restrict_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+        P, b, x, rc, B, cb, H, W);
     return (int)cudaGetLastError();
 }
 

@@ -23,17 +23,32 @@ neighbour offsets, so all of r0 must be written first).
 
 All seven are bound by memory bytes: per cell and column they do ~20
 flops against >= 8 bytes, far below the card's flop:byte ratio.  The
-design moves each byte once.  A thread owns one cell (residual_restrict:
-one 2x2 coarse patch), loads that cell's nine weights from the five base
-planes into registers once, and then loops over the batch, so plane
-bytes are read once per launch rather than once per column (the TPU
-kernel got the same reuse from its batch-fastest grid).  Neighbour reads
-of x go through L1, where the adjacent threads of the tile have already
-brought them.  Unlike the TPU kernels, which read nine pre-shifted plane
-copies to avoid unaligned shifts, these read the five base planes at
-neighbour offsets: 5 instead of 9 plane bytes per cell.  For L Dinv
-the TPU reads nine premultiplied planes plus Dinv; these kernels form
+design moves each byte once: a thread loads its cells' nine weights
+each from the five base planes into registers once and then loops over
+the batch, so plane bytes are read once per block rather than once per
+column (the TPU kernel got the same reuse from its batch-fastest grid).
+Unlike the TPU kernels, which read nine pre-shifted plane copies to
+avoid unaligned shifts, these read the five base planes at neighbour
+offsets: 5 instead of 9 plane bytes per cell.  For L Dinv the TPU reads
+nine premultiplied planes plus Dinv; these kernels form
 w * Dinv[neighbour] in registers, once per cell: 6 plane reads, not 10.
+
+matvec, cheb_step and the three smoother kernels give a thread one cell
+and read x's neighbours through L1, where the adjacent threads of the
+tile have already brought them.  matvec_pap and residual_restrict, which
+reached under half of their byte bound that way, stage each column's
+x tile with a one-cell halo (residual_restrict: and b's tile) in shared
+memory through a three-buffer cp.async ring (the next two columns'
+copies in flight while one is computed; the copy zero-fills cells
+outside the grid, and takes any width and alignment) and give a thread
+several cells: matvec_pap a vertical strip of four in one column (each
+x value read ~3 times per strip from shared memory, not 9 through L1,
+and one block reduction per column rather than per cell), and
+residual_restrict one 2x2 fine patch (its four residuals summed in
+registers, one coalesced store of its coarse cell).  Their blocks each
+take a chunk of the batch, sized per launch so the grid fills two
+waves of the card: on the coarse levels the batch is spread over blocks
+instead of walked 32 deep by each thread.
 
 Each wrapper takes CPU tensors to its plain-torch version (the tests run
 there) and CUDA tensors to its kernel; on a CUDA tensor it launches the
@@ -275,10 +290,11 @@ def matvec(A: StencilOperator, x: torch.Tensor) -> torch.Tensor:
 
 def matvec_pap(A: StencilOperator, x: torch.Tensor):
     """(L x, per-column x . L x) in one pass.  Replaces
-    pallas_stencil.pallas_matvec_pap (pallas_stencil.py:855); bound by
-    bytes.  Each thread block writes one partial dot per column to a
+    pallas_stencil.pallas_matvec_pap (pallas_stencil.py:856); bound by
+    bytes.  Each 32 x 32 tile writes one partial dot per column to a
     scratch tensor, summed here in a fixed order (no float atomics), as
-    the JAX wrapper sums its per-slab partials."""
+    the JAX wrapper sums its per-slab partials; two calls on the same
+    input give the same bits."""
     if not x.is_cuda:
         return matvec_pap_plain(A, x)
     _check(A, x)
@@ -319,7 +335,7 @@ def residual_restrict(A: StencilOperator, b: torch.Tensor, x: torch.Tensor):
     """restrict(b - L x): the 2x2 patch sums of the residual, output
     (B, ceil(H/2), ceil(W/2)); odd H or W restrict as if zero-padded,
     exactly as geomg._restrict.  Replaces
-    pallas_stencil.pallas_residual_restrict (pallas_stencil.py:760),
+    pallas_stencil.pallas_residual_restrict (pallas_stencil.py:761),
     which the TPU gates to even H and W % 256 == 0; bound by bytes (the
     full-size residual is never written)."""
     if not x.is_cuda:

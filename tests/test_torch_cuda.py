@@ -83,3 +83,51 @@ def test_wrappers_refuse_what_kernels_do_not_take(dev):
         cs.residual_init(A, dinv, b[:, :, :8], x[:, :, :8], 0.8)
     with pytest.raises(ValueError):
         cs.cheb_finish(A, dinv, x.transpose(1, 2), b, 0.8, 0.3, 1.1)
+
+
+# the two staged kernels (x's tile in shared memory, a chunk of the batch
+# per block): every tile edge, odd sides, widths that are not a multiple
+# of 32 or 4, and the main path's fine level
+STAGED_SHAPES = [(1, 1), (2, 3), (31, 33), (37, 53), (64, 100), (129, 257),
+                 (257, 333)]
+
+
+def _blocks(B, H, W, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((B, H, W), generator=g, device=dev)
+            for _ in range(2)]
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 5, 8, 32])
+@pytest.mark.parametrize("shape", STAGED_SHAPES)
+def test_staged_kernels_match_plain(dev, B, shape):
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    A, _, _ = _operator(*shape, dev)
+    x, b = _blocks(B, *shape, dev, seed=B)
+    _close(cs.residual_restrict(A, b, x), cs.residual_restrict_plain(A, b, x))
+    _close(cs.matvec_pap(A, x), cs.matvec_pap_plain(A, x))
+    torch.cuda.synchronize()
+
+
+def test_staged_kernels_match_plain_at_fine_level(dev):
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    A, _, _ = _operator(1024, 1024, dev)
+    x, b = _blocks(32, 1024, 1024, dev, seed=5)
+    _close(cs.residual_restrict(A, b, x), cs.residual_restrict_plain(A, b, x))
+    _close(cs.matvec_pap(A, x), cs.matvec_pap_plain(A, x))
+    # b one float off an 8-byte boundary: the scalar path of b's patch
+    bb = torch.empty(b.numel() + 1, device=dev)
+    bb[1:] = b.reshape(-1)
+    b1 = bb[1:].view(b.shape)
+    _close(cs.residual_restrict(A, b1, x), cs.residual_restrict_plain(A, b, x))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (1024, 1024)])
+def test_matvec_pap_repeats_to_the_bit(dev, shape):
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    A, _, _ = _operator(*shape, dev)
+    x, _ = _blocks(32, *shape, dev, seed=9)
+    y1, p1 = cs.matvec_pap(A, x)
+    y2, p2 = cs.matvec_pap(A, x)
+    assert torch.equal(p1, p2) and torch.equal(y1, y2)
