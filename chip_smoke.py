@@ -23,7 +23,9 @@ Phases (any failure exits non-zero; nothing is caught):
      one warm run, then two timed runs, each with the launch counters
      set to 0 just before it; check the resistances (finite, positive
      off the diagonal, symmetric), the CG iteration count (10) and that
-     every kernel launched;
+     every kernel launched; then print each kernel's time per bench job
+     (phase 2's level times weighted by this run's launches per level)
+     beside its byte bound, one per_job line per kernel;
   4. drive the maps path: the same job with write_cum_cur_map_only and
      write_max_cur_maps (all 496 pairs solved in chunks of 32, two
      1M-cell ASC maps written): one warm run, then one timed run with
@@ -351,16 +353,17 @@ def phase_kernels(gmap, dev, dev_name):
              f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at "
              f"B={MAIN_B} {MAIN_HW}")
-    time_levels(gmap, dev, rate)
-    return rows
+    return rows, time_levels(gmap, dev, rate)
 
 
 def time_levels(gmap, dev, rate):
     """Every kernel at B = 32 on each level shape of the bench hierarchy
     where the main path launches it, beside its byte bound.  Each time is
     the least of three runs of 50 launches: on the small levels a run
-    whose host falls behind the spin kernel reads several times slow."""
+    whose host falls behind the spin kernel reads several times slow.
+    Returns {name: [(ms, bound ms) per level]}."""
     rng = np.random.default_rng(11)
+    times = {name: [] for name, _ in LEVEL_KERNELS}
     for H, W in LEVELS:
         A, dinv, blocks = _inputs(gmap, MAIN_B, H, W, rng, dev)
         for name, levels in LEVEL_KERNELS:
@@ -369,9 +372,31 @@ def time_levels(gmap, dev, rate):
             kern, _ = _pairs(name, A, dinv, blocks)
             ms = min(cuda_ms(kern, n=50) for _ in range(3))
             bound = kernel_bytes(name, MAIN_B, H, W) / rate * 1e3
+            times[name].append((ms, bound))
             note(f"level {name} B={MAIN_B} {H}x{W}: {ms:.4f} ms, byte "
                  f"bound {bound:.4f} ms, {100 * bound / ms:.1f}% of bound")
         del A, dinv, blocks
+    return times
+
+
+def note_per_job(level_times, launches):
+    """Each kernel's time per bench job: its level times, each times the
+    launches the job makes on that level, summed, beside the same sum of
+    its byte bounds.  A kernel launches equally often on each of its
+    levels (the smoother kernels and residual_restrict once per V-cycle
+    level, matvec_pap, cheb_step and matvec on one level), so the
+    phase-3 counter divided by its number of levels gives the launches
+    per level."""
+    for name, per_level in level_times.items():
+        n, rem = divmod(launches[name], len(per_level))
+        if rem:
+            raise AssertionError(f"{name}: {launches[name]} launches do not "
+                                 f"split evenly over {len(per_level)} levels")
+        ms = sum(t for t, _ in per_level) * n
+        bound = sum(b for _, b in per_level) * n
+        note(f"per_job {name}: {ms:.4f} ms over {launches[name]} launches "
+             f"({n} per level), byte bound {bound:.4f} ms, "
+             f"{100 * bound / ms:.1f}% of bound")
 
 
 def phase_main(cfg, rows):
@@ -528,8 +553,10 @@ def main():
     d = tempfile.mkdtemp(dir=scratch)
     try:
         cfg, gmap = make_job(d, 1000, 1000)
-        rows = phase_kernels(gmap, dev, dev_name)
+        rows, level_times = phase_kernels(gmap, dev, dev_name)
         r = phase_main(cfg, rows)
+        note_per_job(level_times, {k: row["launches"]
+                                   for k, row in rows.items()})
         phase_maps(cfg, gmap, r)
         phase_agree(tempfile.mkdtemp(dir=d))
     finally:

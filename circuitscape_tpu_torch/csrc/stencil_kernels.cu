@@ -15,9 +15,10 @@
 //
 // The smoother kernels (cheb_init, cheb_finish) also apply L to Dinv v, i.e.
 // they use the weights premultiplied by the inverse diagonal at the cell each
-// term reads: w[q] * dinv[off[q]] (the centre: diag * dinv).  The TPU kernels
-// read these as nine premultiplied plane copies; here the products are formed
-// in registers from the five base planes and dinv, once per cell.
+// term reads: w[q] * dinv[neighbour q] (the centre: diag * dinv).  The TPU
+// kernels read these as nine premultiplied plane copies; here the products
+// are formed in registers from the five base planes and dinv, once per cell
+// and block.
 //
 // Every kernel here is bound by memory bytes (~20 flops per cell and column
 // against at least 8 bytes), and each moves every byte once: the weights are
@@ -25,29 +26,30 @@
 // B columns (or over a chunk of them) with the weights it needs held in
 // registers.
 //
-// matvec, cheb_step, cheb_init, residual_init, cheb_finish: a thread owns one
-// cell of a 32 x 8 tile, loads its nine weights and the nine offsets of its x
-// reads into registers once, and loops over all B columns; x's neighbour
-// reads hit L1, where the neighbouring threads of the tile have brought them.
-// Neighbours outside the grid get weight 0 and an offset clamped into the
-// grid, so the column loop has no branches.  The column loop stays rolled
-// (cheb_step: unrolled by 2): on the H100, unrolling further raised the
-// register count and lost more to occupancy than it gained in loads in
-// flight.
+// matvec, cheb_step, residual_init: a thread owns one cell of a 32 x 8 tile,
+// loads its nine weights and the nine offsets of its x reads into registers
+// once, and loops over all B columns; x's neighbour reads hit L1, where the
+// neighbouring threads of the tile have brought them.  Neighbours outside
+// the grid get weight 0 and an offset clamped into the grid, so the column
+// loop has no branches.  The column loop stays rolled (cheb_step: unrolled
+// by 2): on the H100, unrolling further raised the register count and lost
+// more to occupancy than it gained in loads in flight.
 //
-// matvec_pap and residual_restrict (the two whose first design, one thread
-// per cell or cell pair through L1, reached under half of the byte bound)
-// stage their inputs instead: for each column, the block copies x's tile
-// with a one-cell halo (residual_restrict: and b's tile) into shared memory
-// with cp.async, into a ring of NSTAGE buffers, so the copies of the next two
-// columns are in flight while this column's stencils are computed from
-// shared memory.  Cells outside the grid are zero-filled by the copy, so
-// they read as zero without clamped offsets, and every width takes the same
-// 4-byte copies (no 16-byte alignment needed, unlike TMA).  Each thread owns
-// several cells (matvec_pap: a vertical strip of MP_R in one fine column;
-// residual_restrict: one 2 x 2 fine patch) and holds their weights in
-// registers, loaded while the first copies fly.  A block owns one tile and a
-// chunk of the B columns
+// matvec_pap, residual_restrict, cheb_init and cheb_finish (the four whose
+// first design, one thread per cell or cell pair through L1, reached under
+// half of the byte bound at 1024^2 or per job) stage their inputs instead:
+// for each column, the block copies the tile of the block the stencil reads
+// with a one-cell halo (x; b for cheb_init, r0 for cheb_finish), and the
+// tile of any other input block (residual_restrict: b; cheb_finish: x1),
+// into shared memory with cp.async, into a ring of NSTAGE buffers, so the
+// copies of the next two columns are in flight while this column's stencils
+// are computed from shared memory.  Cells outside the grid are zero-filled
+// by the copy, so they read as zero without clamped offsets, and every width
+// takes the same 4-byte copies (no 16-byte alignment needed, unlike TMA).
+// Each thread owns several cells (matvec_pap, cheb_init, cheb_finish: a
+// vertical strip of 4 in one fine column; residual_restrict: one 2 x 2 fine
+// patch) and holds their weights in registers, loaded while the first copies
+// fly.  A block owns one tile and a chunk of the B columns
 // (blockIdx.x), chosen per launch so the grid fills at least two waves of
 // the card: small levels spread the columns over blocks rather than walk them
 // in sequence.  The chunk index varies fastest, so the blocks of one tile run
@@ -112,15 +114,6 @@ __device__ __forceinline__ Stencil9 load_stencil(const Planes& P, int i,
         if (!ok) k.w[q] = 0.0f;
         k.off[q] = ok ? ni * W + nj : i * W + j;
     }
-    return k;
-}
-
-// The stencil of L Dinv: each weight times dinv at the cell its term reads.
-// Terms outside the grid keep weight 0 (their offset is the cell's own).
-__device__ __forceinline__ Stencil9 premultiply(Stencil9 k,
-                                                const float* __restrict__ dinv) {
-#pragma unroll
-    for (int q = 0; q < 9; ++q) k.w[q] *= __ldg(dinv + k.off[q]);
     return k;
 }
 
@@ -458,28 +451,114 @@ residual_restrict_kernel(Planes P, const float* __restrict__ bvec,
     });
 }
 
+// cheb_init and cheb_finish, the smoother kernels that apply L Dinv: a
+// 32-column x CH_TY-row tile, thread (tx, ty) owning the strip of CH_R cells
+// (rows ty*CH_R ...) of fine column tx, as in matvec_pap.  A stage of the
+// ring holds the window of the block the stencil reads (b, r0) over the
+// tile with a one-cell halo; cheb_finish's also holds x1's tile.  dinv's
+// window, of the same geometry, is staged once per block.
+constexpr int CH_R = 4;
+constexpr int CH_TX = 32;
+constexpr int CH_TY = NWARP * CH_R;
+constexpr int CH_ROWS = CH_TY + 2;
+constexpr int CH_COLS = CH_TX + 2;
+
+// What the strip of thread (tx, ty) reads of a staged window t: window rows
+// ty*CH_R .. ty*CH_R + CH_R + 1 (the window row of cell i0 + r is
+// ty*CH_R + r + 1), columns tx .. tx + 2.
+__device__ __forceinline__ void read_strip(const float* t, int tx, int ty,
+                                           float (&n)[CH_R + 2][3]) {
+    const float* s = t + ty * CH_R * CH_COLS + tx;
+#pragma unroll
+    for (int r = 0; r < CH_R + 2; ++r) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) n[r][q] = s[r * CH_COLS + q];
+    }
+}
+
+// The weights of L Dinv and the dinv values of thread (tx, ty)'s strip, in
+// registers.  dsh is dinv's window over the tile, in the stencil window's
+// geometry, whose copies the kernel issued with column 0's, so it holds 0
+// outside the grid and dinv is never read there.  The base weights' loads
+// are issued first; then the thread waits for column 0's copy group and
+// multiplies each weight by dinv at the cell its term reads (the centre:
+// diag * dinv at the cell), one float32 product as expand_planes forms it,
+// so the two agree to the bit.
+__device__ __forceinline__ void strip_weights_dinv(
+        const Planes& P, const float* dsh, int i0, int j, int tx, int ty,
+        int H, int W, float (&w)[CH_R][9], float (&dv)[CH_R]) {
+    constexpr int di[9] = {0, 0, 0, 1, -1, 1, -1, -1, 1};
+    constexpr int dj[9] = {0, 1, -1, 0, 0, 1, -1, 1, -1};
+#pragma unroll
+    for (int r = 0; r < CH_R; ++r) load_weights(P, i0 + r, j, H, W, w[r]);
+    __pipeline_wait_prior(NSTAGE - 2);
+    __syncthreads();
+    const float* s = dsh + (ty * CH_R + 1) * CH_COLS + tx + 1;
+#pragma unroll
+    for (int r = 0; r < CH_R; ++r) {
+        const float* sr = s + r * CH_COLS;
+#pragma unroll
+        for (int q = 0; q < 9; ++q) w[r][q] *= sr[di[q] * CH_COLS + dj[q]];
+        dv[r] = sr[0];
+    }
+}
+
+// (L Dinv v) at cell r of a strip whose neighbourhood is n.
+__device__ __forceinline__ float lap_strip(const float (&w)[9],
+                                           const float (&n)[CH_R + 2][3],
+                                           int r) {
+    return lap3x3(w, n[r][0], n[r][1], n[r][2], n[r + 1][0], n[r + 1][1],
+                  n[r + 1][2], n[r + 2][0], n[r + 2][1], n[r + 2][2]);
+}
+
 // Replaces _cheb_init_kernel / pallas_cheb_init (pallas_stencil.py:473,
 // 502).  The degree-2 Chebyshev smoother from x = 0 in one pass:
 //   x = (1 + ca) c dinv b + cb dinv (b - c L (dinv b)).
+// Bound by bytes (b in, x out, five planes and dinv).  b is staged through
+// the ring; each thread slides down its strip reading three b values a row
+// from shared memory, and holds the strip's 36 premultiplied weights and 4
+// dinv values in registers, formed once per block from dinv's window,
+// staged once (read through __ldg instead, it took 96 registers against 74
+// and the bench job's launches 7% longer on the H100).
 __global__ void __launch_bounds__(NT)
 cheb_init_kernel(Planes P, const float* __restrict__ dinv,
                  const float* __restrict__ bvec, float* __restrict__ x,
-                 float c, float ca, float cb, int B, int H, int W) {
-    const int j = blockIdx.x * TX + threadIdx.x;
-    const int i = blockIdx.y * TY + threadIdx.y;
-    if (i >= H || j >= W) return;
-    const Stencil9 k = premultiply(load_stencil(P, i, j, H, W), dinv);
+                 float c, float ca, float cb, int B, int chunk, int H,
+                 int W) {
+    __shared__ __align__(16) float ring[NSTAGE][CH_ROWS * CH_COLS];
+    __shared__ float dsh[CH_ROWS * CH_COLS];
+    const int tx = threadIdx.x & 31;
+    const int ty = threadIdx.x >> 5;
+    const int j = blockIdx.y * CH_TX + tx;
+    const int i0 = blockIdx.z * CH_TY + ty * CH_R;
+    const int b0 = blockIdx.x * chunk;
+    const int nb = min(chunk, B - b0);
+    const Window<CH_ROWS, CH_COLS> win((int)blockIdx.z * CH_TY - 1,
+                                       (int)blockIdx.y * CH_TX - 1, H, W);
     const size_t plane = (size_t)H * W;
-    const int at = i * W + j;
-    const float dv = __ldg(dinv + at);
+    const auto fill = [&](float* buf, int k) {
+        win.stage(buf, bvec + (b0 + k) * plane);
+    };
+    win.stage(dsh, dinv);   // joins column 0's copy group
+    ring_start(ring, nb, fill);
+    float w[CH_R][9], dv[CH_R];
+    strip_weights_dinv(P, dsh, i0, j, tx, ty, H, W, w, dv);
     const float c0 = (1.0f + ca) * c;
-#pragma unroll 1
-    for (int b = 0; b < B; ++b) {
-        const float* bb = bvec + b * plane;
-        const float bv = __ldg(bb + at);
-        const float r1 = bv - c * lap(k, bb);
-        x[b * plane + at] = c0 * (dv * bv) + cb * (dv * r1);
-    }
+    const bool col_in = j < W;
+    ring_walk(ring, nb, fill, [&](int k, const float* t) {
+        float n[CH_R + 2][3];
+        read_strip(t, tx, ty, n);
+        float* xb = x + (b0 + k) * plane;
+#pragma unroll
+        for (int r = 0; r < CH_R; ++r) {
+            const float bv = n[r + 1][1];
+            const float r1 = bv - c * lap_strip(w[r], n, r);
+            if (col_in && i0 + r < H) {
+                xb[(size_t)(i0 + r) * W + j] =
+                    c0 * (dv[r] * bv) + cb * (dv[r] * r1);
+            }
+        }
+    });
 }
 
 // Replaces _res_init_kernel / pallas_residual_init (pallas_stencil.py:573,
@@ -511,27 +590,58 @@ residual_init_kernel(Planes P, const float* __restrict__ dinv,
 // 660).  Pass 2 of the warm smoother:
 //   x2 = x1 + ca c dinv r0 + cb dinv (r0 - c L (dinv r0)).
 // Reads r0 at neighbour offsets, so pass 1 must have written all of it.
+// Bound by bytes (r0 and x1 in, x2 out, five planes and dinv).  cheb_init's
+// design, with x1's tile staged in the same stage as r0's window (x1 read
+// from device memory when its column is computed made the kernel twice as
+// slow on the H100: those loads had nothing in flight ahead of them).
+struct CFStage {
+    float r[CH_ROWS * CH_COLS];
+    float x1[CH_TY * CH_TX];
+};
+
 __global__ void __launch_bounds__(NT)
 cheb_finish_kernel(Planes P, const float* __restrict__ dinv,
                    const float* __restrict__ r0, const float* __restrict__ x1,
                    float* __restrict__ x2, float c, float ca, float cb, int B,
-                   int H, int W) {
-    const int j = blockIdx.x * TX + threadIdx.x;
-    const int i = blockIdx.y * TY + threadIdx.y;
-    if (i >= H || j >= W) return;
-    const Stencil9 k = premultiply(load_stencil(P, i, j, H, W), dinv);
+                   int chunk, int H, int W) {
+    __shared__ __align__(16) CFStage ring[NSTAGE];
+    __shared__ float dsh[CH_ROWS * CH_COLS];
+    const int tx = threadIdx.x & 31;
+    const int ty = threadIdx.x >> 5;
+    const int j = blockIdx.y * CH_TX + tx;
+    const int i0 = blockIdx.z * CH_TY + ty * CH_R;
+    const int b0 = blockIdx.x * chunk;
+    const int nb = min(chunk, B - b0);
+    const int gi0 = (int)blockIdx.z * CH_TY;
+    const int gj0 = (int)blockIdx.y * CH_TX;
+    const Window<CH_ROWS, CH_COLS> rwin(gi0 - 1, gj0 - 1, H, W);
+    const Window<CH_TY, CH_TX> xwin(gi0, gj0, H, W);
     const size_t plane = (size_t)H * W;
-    const int at = i * W + j;
-    const float dv = __ldg(dinv + at);
+    const auto fill = [&](CFStage& st, int k) {
+        rwin.stage(st.r, r0 + (b0 + k) * plane);
+        xwin.stage(st.x1, x1 + (b0 + k) * plane);
+    };
+    rwin.stage(dsh, dinv);   // joins column 0's copy group
+    ring_start(ring, nb, fill);
+    float w[CH_R][9], dv[CH_R];
+    strip_weights_dinv(P, dsh, i0, j, tx, ty, H, W, w, dv);
     const float cac = ca * c;
-#pragma unroll 1
-    for (int b = 0; b < B; ++b) {
-        const size_t o = b * plane + at;
-        const float* rb = r0 + b * plane;
-        const float rv = __ldg(rb + at);
-        const float r1 = rv - c * lap(k, rb);
-        x2[o] = __ldg(x1 + o) + cac * (dv * rv) + cb * (dv * r1);
-    }
+    const bool col_in = j < W;
+    ring_walk(ring, nb, fill, [&](int k, const CFStage& st) {
+        float n[CH_R + 2][3];
+        read_strip(st.r, tx, ty, n);
+        const float* xs = st.x1 + ty * CH_R * CH_TX + tx;
+        float* xb = x2 + (b0 + k) * plane;
+#pragma unroll
+        for (int r = 0; r < CH_R; ++r) {
+            const float rv = n[r + 1][1];
+            const float r1 = rv - c * lap_strip(w[r], n, r);
+            if (col_in && i0 + r < H) {
+                xb[(size_t)(i0 + r) * W + j] =
+                    xs[r * CH_TX] + cac * (dv[r] * rv) + cb * (dv[r] * r1);
+            }
+        }
+    });
 }
 
 inline dim3 tiles(int rows, int cols) {
@@ -638,8 +748,11 @@ int cs_cheb_init(const float* we, const float* ws, const float* wse,
     const int bad = launch_error(B, H, W);
     if (bad >= 0) return bad;
     const Planes P{we, ws, wse, wne, diag};
-    cheb_init_kernel<<<tiles(H, W), dim3(TX, TY), 0, (cudaStream_t)stream>>>(
-        P, dinv, b, x, c, ca, cb, B, H, W);
+    int chunk = B;
+    const dim3 grid = chunked_grid(cheb_init_kernel, ceil_div(W, CH_TX),
+                                   ceil_div(H, CH_TY), B, &chunk);
+    cheb_init_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+        P, dinv, b, x, c, ca, cb, B, chunk, H, W);
     return (int)cudaGetLastError();
 }
 
@@ -664,9 +777,11 @@ int cs_cheb_finish(const float* we, const float* ws, const float* wse,
     const int bad = launch_error(B, H, W);
     if (bad >= 0) return bad;
     const Planes P{we, ws, wse, wne, diag};
-    cheb_finish_kernel<<<tiles(H, W), dim3(TX, TY), 0,
-                         (cudaStream_t)stream>>>(P, dinv, r0, x1, x2, c, ca,
-                                                 cb, B, H, W);
+    int chunk = B;
+    const dim3 grid = chunked_grid(cheb_finish_kernel, ceil_div(W, CH_TX),
+                                   ceil_div(H, CH_TY), B, &chunk);
+    cheb_finish_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+        P, dinv, r0, x1, x2, c, ca, cb, B, chunk, H, W);
     return (int)cudaGetLastError();
 }
 

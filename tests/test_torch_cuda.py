@@ -85,9 +85,9 @@ def test_wrappers_refuse_what_kernels_do_not_take(dev):
         cs.cheb_finish(A, dinv, x.transpose(1, 2), b, 0.8, 0.3, 1.1)
 
 
-# the two staged kernels (x's tile in shared memory, a chunk of the batch
-# per block): every tile edge, odd sides, widths that are not a multiple
-# of 32 or 4, and the main path's fine level
+# the staged kernels (tiles in shared memory, a chunk of the batch per
+# block): every tile edge, odd sides, widths that are not a multiple of 32
+# or 4, and the main path's fine level
 STAGED_SHAPES = [(1, 1), (2, 3), (31, 33), (37, 53), (64, 100), (129, 257),
                  (257, 333)]
 
@@ -98,23 +98,34 @@ def _blocks(B, H, W, dev, seed):
             for _ in range(2)]
 
 
+def _smoother_match_plain(A, dinv, x, b):
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    c, ca, cb = 0.8, 0.33, 1.07
+    _close(cs.cheb_init(A, dinv, b, c, ca, cb),
+           cs.cheb_init_plain(A, dinv, b, c, ca, cb))
+    _close(cs.cheb_finish(A, dinv, b, x, c, ca, cb),
+           cs.cheb_finish_plain(A, dinv, b, x, c, ca, cb))
+
+
 @pytest.mark.parametrize("B", [1, 2, 3, 5, 8, 32])
 @pytest.mark.parametrize("shape", STAGED_SHAPES)
 def test_staged_kernels_match_plain(dev, B, shape):
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
-    A, _, _ = _operator(*shape, dev)
+    A, dinv, _ = _operator(*shape, dev)
     x, b = _blocks(B, *shape, dev, seed=B)
     _close(cs.residual_restrict(A, b, x), cs.residual_restrict_plain(A, b, x))
     _close(cs.matvec_pap(A, x), cs.matvec_pap_plain(A, x))
+    _smoother_match_plain(A, dinv, x, b)
     torch.cuda.synchronize()
 
 
 def test_staged_kernels_match_plain_at_fine_level(dev):
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
-    A, _, _ = _operator(1024, 1024, dev)
+    A, dinv, _ = _operator(1024, 1024, dev)
     x, b = _blocks(32, 1024, 1024, dev, seed=5)
     _close(cs.residual_restrict(A, b, x), cs.residual_restrict_plain(A, b, x))
     _close(cs.matvec_pap(A, x), cs.matvec_pap_plain(A, x))
+    _smoother_match_plain(A, dinv, x, b)
     # b one float off an 8-byte boundary: the scalar path of b's patch
     bb = torch.empty(b.numel() + 1, device=dev)
     bb[1:] = b.reshape(-1)

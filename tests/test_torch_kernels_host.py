@@ -313,7 +313,8 @@ def test_kernel_matches_plain_on_host(lib, name, shape):
 
 
 @pytest.mark.parametrize("card", [(1, 1), (132, 3)])
-@pytest.mark.parametrize("name", ["matvec_pap", "residual_restrict"])
+@pytest.mark.parametrize("name", ["matvec_pap", "residual_restrict",
+                                  "cheb_init", "cheb_finish"])
 @pytest.mark.parametrize("B", [1, 5, 40])
 def test_staged_kernel_column_chunks_on_host(lib, name, B, card):
     """The staged kernels with all B columns in one chunk per tile (a card
@@ -324,6 +325,39 @@ def test_staged_kernel_column_chunks_on_host(lib, name, B, card):
     groups."""
     lib.emu_set_card(*card)
     A, dinv, (x, b, d) = _inputs(B, 33, 35, seed=B)
+    _close(*_run(lib, name, A, dinv, x, b, d))
+
+
+def _nan_fenced(p):
+    """p (H, W) as a contiguous view into a buffer that holds NaN for a
+    whole row and more before and after it: a read outside the plane's
+    rows turns the result into NaN."""
+    H, W = p.shape
+    pad = 2 * W + 2
+    buf = torch.full((H * W + 2 * pad,), float("nan"), dtype=p.dtype)
+    buf[pad:pad + H * W] = p.reshape(-1)
+    return buf[pad:pad + H * W].view(H, W)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_on_cropped_grid_on_host(lib, name):
+    """A 33 x 35 crop from inside a grid with no holes, so that the edge
+    cells have non-zero weights toward neighbours outside the crop: those
+    neighbours (and, for the smoother kernels, their Dinv) must read as 0,
+    and the planes and Dinv, fenced by NaN, must never be read outside
+    the grid."""
+    lib.emu_set_card(132, 3)
+    rng = np.random.default_rng(4)
+    g = rng.uniform(0.5, 3.0, (41, 45))
+    full = stencil_from_gmap_device(torch.as_tensor(g), False, False)
+    planes = [_nan_fenced(p[4:37, 5:40].to(torch.float32))
+              for p in full.planes]
+    A = type(full)(*planes)
+    assert all(float(p.abs().min()) > 0 for p in (A.we[:, -1], A.ws[-1],
+                                                  A.wse[-1], A.wne[0]))
+    dinv = _nan_fenced(1.0 / A.diag)
+    x, b, d = (torch.as_tensor(rng.standard_normal((3, 33, 35)),
+                               dtype=torch.float32) for _ in range(3))
     _close(*_run(lib, name, A, dinv, x, b, d))
 
 
