@@ -14,9 +14,12 @@ Phases (any failure exits non-zero; nothing is caught):
      time each kernel and its plain version with CUDA events at the main
      path's shapes, beside the least time the card could take and, for
      matvec (the one with a single-call library form), a CSR sparse
-     product; time each kernel at B = 32 on every level shape of the
-     bench job's hierarchy (1024^2 down to 32^2) where the main path
-     launches it, beside its byte bound, one line per kernel and level;
+     product; on every level shape of the bench job's hierarchy
+     (1024^2 down to 32^2) where the main path launches a kernel, hold
+     it at B = 32 against its plain version (same tolerance) and time
+     it beside its byte bound (and matvec's beside the sparse product,
+     held against the plain version there too), one line per kernel
+     and level;
   3. drive the main path: the bench.py job (seed 42, 1000 x 1000
      conductance raster with ~10% NODATA, 32 focal points, cg+amg,
      single precision, shortcut mode) through compute(..., "cuda"):
@@ -123,15 +126,17 @@ def kernel_bytes(name, B, H, W) -> int:
 
 def cuda_ms(fn, n=20, warm=3) -> float:
     """Device ms per call of fn over n back-to-back calls.  A spin
-    kernel (~100k cycles per call) holds the card while the host queues
-    the calls, so a kernel shorter than its launch's host cost is timed
-    on the device and not at the host's enqueue rate."""
+    kernel (~500k cycles, ~0.25 ms, per call) holds the card while the
+    host queues the calls, so a kernel shorter than its launch's host
+    cost is timed on the device and not at the host's enqueue rate (with
+    100k cycles a call, cheb_step's 32^2 launches, whose wrapper queues
+    three outputs, read 3-25 us on the H100 from one run to the next)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000 * n)
+    torch.cuda._sleep(500_000 * n)
     t0.record()
     for _ in range(n):
         fn()
@@ -271,15 +276,44 @@ def _csr_laplacian(A):
 
 def _library_matvec(A, x):
     """One PyTorch call that computes y = L x: a CSR sparse product
-    (cuSPARSE) on x's (H*W, B) column-major view.  Returns the call and
-    its result reshaped to (B, H, W)."""
+    (cuSPARSE) on x's (H*W, B) column-major view.  Returns the call,
+    after holding its result against the plain matvec."""
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
     B, H, W = x.shape
     L = _csr_laplacian(A)
     xt = x.reshape(B, H * W).t()
 
     def call():
         return torch.sparse.mm(L, xt)
-    return call, call().t().reshape(B, H, W)
+    ref = cs.matvec_plain(A, x)
+    err = float((call().t().reshape(B, H, W) - ref).abs().max())
+    if not err <= TOL * float(ref.abs().max()):
+        raise AssertionError(f"library sparse product disagrees with the "
+                             f"plain matvec by {err} at B={B} {H}x{W}")
+    return call
+
+
+def check_kernel(name, kern, plain, label) -> float:
+    """Hold one kernel call against its plain version (max |kernel -
+    plain| <= TOL * max |plain| on every output; matvec_pap's p.Ap also
+    bit-identical on a second call).  Returns the max abs error."""
+    got, ref = _as_tuple(kern()), _as_tuple(plain())
+    if name == "matvec_pap":
+        # fixed-order block sums: p.Ap must repeat to the bit
+        again = kern()
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+            raise AssertionError(f"matvec_pap {label}: two calls on the "
+                                 f"same input differ")
+    torch.cuda.synchronize()
+    worst = 0.0
+    for g_, r_ in zip(got, ref):
+        err = float((g_ - r_).abs().max())
+        scale = float(r_.abs().max())
+        if not err <= TOL * scale:
+            raise AssertionError(f"{name} {label}: max err {err} > "
+                                 f"{TOL} * {scale}")
+        worst = max(worst, err)
+    return worst
 
 
 def phase_kernels(gmap, dev, dev_name):
@@ -299,31 +333,13 @@ def phase_kernels(gmap, dev, dev_name):
             A, dinv, blocks = _inputs(gmap, B, H, W, rng, dev)
             for name, replaces, fl in KERNELS:
                 kern, plain = _pairs(name, A, dinv, blocks)
-                got, ref = _as_tuple(kern()), _as_tuple(plain())
-                if name == "matvec_pap":
-                    # fixed-order block sums: p.Ap must repeat to the bit
-                    again = kern()
-                    if not all(torch.equal(a, b_)
-                               for a, b_ in zip(got, again)):
-                        raise AssertionError(
-                            f"matvec_pap B={B} {H}x{W}: two calls on the "
-                            f"same input differ")
-                torch.cuda.synchronize()
-                for g_, r_ in zip(got, ref):
-                    err = float((g_ - r_).abs().max())
-                    scale = float(r_.abs().max())
-                    if not err <= TOL * scale:
-                        raise AssertionError(
-                            f"{name} B={B} {H}x{W}: max err {err} > "
-                            f"{TOL} * {scale}")
                 row = rows.setdefault(name, {
                     "name": name, "route": "cuda", "source": SOURCE,
                     "replaces": replaces, "launches": 0,
                     "max_abs_err": 0.0})
                 row["max_abs_err"] = max(
                     row["max_abs_err"],
-                    max(float((g_ - r_).abs().max())
-                        for g_, r_ in zip(got, ref)))
+                    check_kernel(name, kern, plain, f"B={B} {H}x{W}"))
                 if (H, W) == MAIN_HW:
                     nbytes = kernel_bytes(name, B, H, W)
                     nops = fl * B * H * W
@@ -335,16 +351,11 @@ def phase_kernels(gmap, dev, dev_name):
                         else "operations",
                         library_ms=None)
                     if name == "matvec":
-                        # the only one of the four that one PyTorch call
+                        # the only one of the seven that one PyTorch call
                         # computes; the others have no single-call form
-                        lib, y = _library_matvec(A, blocks[0])
-                        err = float((y - ref[0]).abs().max())
-                        if not err <= TOL * float(ref[0].abs().max()):
-                            raise AssertionError(
-                                f"library sparse product disagrees with "
-                                f"the plain matvec by {err}")
+                        lib = _library_matvec(A, blocks[0])
                         row["library_ms"] = cuda_ms(lib)
-                        del lib, y
+                        del lib
             del A, dinv, blocks
         note(f"kernels agree with their plain versions at {H}x{W}, "
              f"B in {BATCHES if (H, W) != MAIN_HW else (MAIN_B,)}")
@@ -353,15 +364,18 @@ def phase_kernels(gmap, dev, dev_name):
              f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at "
              f"B={MAIN_B} {MAIN_HW}")
-    return rows, time_levels(gmap, dev, rate)
+    return rows, time_levels(gmap, dev, rate, rows)
 
 
-def time_levels(gmap, dev, rate):
+def time_levels(gmap, dev, rate, rows):
     """Every kernel at B = 32 on each level shape of the bench hierarchy
-    where the main path launches it, beside its byte bound.  Each time is
-    the least of three runs of 50 launches: on the small levels a run
-    whose host falls behind the spin kernel reads several times slow.
-    Returns {name: [(ms, bound ms) per level]}."""
+    where the main path launches it: held against its plain version
+    there (check_kernel; the error joins its row of the kernels line),
+    then timed beside its byte bound and, for matvec, the library sparse
+    product on the same inputs.  Each time is the least of three runs of
+    50 launches: on the small levels a run whose host falls behind the
+    spin kernel reads several times slow.  Returns {name: [(ms, bound
+    ms) per level]}."""
     rng = np.random.default_rng(11)
     times = {name: [] for name, _ in LEVEL_KERNELS}
     for H, W in LEVELS:
@@ -369,11 +383,19 @@ def time_levels(gmap, dev, rate):
         for name, levels in LEVEL_KERNELS:
             if (H, W) not in levels:
                 continue
-            kern, _ = _pairs(name, A, dinv, blocks)
+            kern, plain = _pairs(name, A, dinv, blocks)
+            row = rows[name]
+            row["max_abs_err"] = max(row["max_abs_err"], check_kernel(
+                name, kern, plain, f"level B={MAIN_B} {H}x{W}"))
             ms = min(cuda_ms(kern, n=50) for _ in range(3))
             bound = kernel_bytes(name, MAIN_B, H, W) / rate * 1e3
             times[name].append((ms, bound))
-            note(f"level {name} B={MAIN_B} {H}x{W}: {ms:.4f} ms, byte "
+            lib = ""
+            if name == "matvec":
+                call = _library_matvec(A, blocks[0])
+                lib = (f", library "
+                       f"{min(cuda_ms(call, n=50) for _ in range(3)):.4f} ms")
+            note(f"level {name} B={MAIN_B} {H}x{W}: {ms:.4f} ms{lib}, byte "
                  f"bound {bound:.4f} ms, {100 * bound / ms:.1f}% of bound")
         del A, dinv, blocks
     return times

@@ -26,30 +26,33 @@
 // B columns (or over a chunk of them) with the weights it needs held in
 // registers.
 //
-// matvec, cheb_step, residual_init: a thread owns one cell of a 32 x 8 tile,
-// loads its nine weights and the nine offsets of its x reads into registers
-// once, and loops over all B columns; x's neighbour reads hit L1, where the
+// residual_init: a thread owns one cell of a 32 x 8 tile, loads its nine
+// weights and the nine offsets of its x reads into registers once, and
+// loops over all B columns; x's neighbour reads hit L1, where the
 // neighbouring threads of the tile have brought them.  Neighbours outside
 // the grid get weight 0 and an offset clamped into the grid, so the column
-// loop has no branches.  The column loop stays rolled (cheb_step: unrolled
-// by 2): on the H100, unrolling further raised the register count and lost
-// more to occupancy than it gained in loads in flight.
+// loop has no branches.  The column loop stays rolled: on the H100,
+// unrolling it raised the register count and lost more to occupancy than it
+// gained in loads in flight.
 //
-// matvec_pap, residual_restrict, cheb_init and cheb_finish (the four whose
-// first design, one thread per cell or cell pair through L1, reached under
-// half of the byte bound at 1024^2 or per job) stage their inputs instead:
-// for each column, the block copies the tile of the block the stencil reads
-// with a one-cell halo (x; b for cheb_init, r0 for cheb_finish), and the
-// tile of any other input block (residual_restrict: b; cheb_finish: x1),
-// into shared memory with cp.async, into a ring of NSTAGE buffers, so the
-// copies of the next two columns are in flight while this column's stencils
-// are computed from shared memory.  Cells outside the grid are zero-filled
-// by the copy, so they read as zero without clamped offsets, and every width
-// takes the same 4-byte copies (no 16-byte alignment needed, unlike TMA).
-// Each thread owns several cells (matvec_pap, cheb_init, cheb_finish: a
-// vertical strip of 4 in one fine column; residual_restrict: one 2 x 2 fine
-// patch) and holds their weights in registers, loaded while the first copies
-// fly.  A block owns one tile and a chunk of the B columns
+// The six others (whose first design, one thread per cell or cell pair
+// through L1, reached under half of the byte bound at 1024^2 or per job, or
+// walked all B columns in one thread on the coarse levels where the main
+// path launches them) stage their inputs instead: for each column, the
+// block copies the tile of the block the stencil reads with a one-cell halo
+// (x; b for cheb_init, r0 for cheb_finish, d for cheb_step), and the tile of
+// any other input block (residual_restrict: b; cheb_finish: x1; cheb_step:
+// r and x), into shared memory with cp.async, into a ring of NSTAGE
+// buffers, so the copies of the next two columns are in flight while this
+// column's stencils are computed from shared memory.  Cells outside the
+// grid are zero-filled by the copy, so they read as zero without clamped
+// offsets, and every width takes the same 4-byte copies (no 16-byte
+// alignment needed, unlike TMA).  Each thread owns several cells (matvec,
+// matvec_pap, cheb_step, cheb_init, cheb_finish: a vertical strip of 4 in
+// one fine column, of 1 for matvec and cheb_step on levels too small to
+// fill the card with strips of 4; residual_restrict: one 2 x 2 fine patch)
+// and holds their weights in registers, loaded while the first copies fly.
+// A block owns one tile and a chunk of the B columns
 // (blockIdx.x), chosen per launch so the grid fills at least two waves of
 // the card: small levels spread the columns over blocks rather than walk them
 // in sequence.  The chunk index varies fastest, so the blocks of one tile run
@@ -124,22 +127,6 @@ __device__ __forceinline__ float lap(const Stencil9& k,
 #pragma unroll
     for (int q = 1; q < 9; ++q) y -= k.w[q] * __ldg(x + k.off[q]);
     return y;
-}
-
-// Replaces _kernel / pallas_matvec (pallas_stencil.py:175, 900).  y = L x.
-__global__ void __launch_bounds__(NT)
-matvec_kernel(Planes P, const float* __restrict__ x, float* __restrict__ y,
-              int B, int H, int W) {
-    const int j = blockIdx.x * TX + threadIdx.x;
-    const int i = blockIdx.y * TY + threadIdx.y;
-    if (i >= H || j >= W) return;
-    const Stencil9 k = load_stencil(P, i, j, H, W);
-    const size_t plane = (size_t)H * W;
-    const int at = i * W + j;
-#pragma unroll 1
-    for (int b = 0; b < B; ++b) {
-        y[b * plane + at] = lap(k, x + b * plane);
-    }
 }
 
 // --- staged kernels: each column's tiles in shared memory ----------------
@@ -250,113 +237,129 @@ __device__ __forceinline__ void ring_walk(Stage* ring, int nb, Fill fill,
     }
 }
 
-// matvec_pap: a 32-column x MP_TY-row tile; thread (tx, ty) owns the strip
-// of MP_R cells (rows ty*MP_R ...) of fine column tx.
-constexpr int MP_R = 4;
-constexpr int MP_TX = 32;
-constexpr int MP_TY = NWARP * MP_R;
-constexpr int MP_ROWS = MP_TY + 2;
-constexpr int MP_COLS = MP_TX + 2;
+// The strip kernels (matvec, matvec_pap, cheb_step, cheb_init,
+// cheb_finish): a 32-column x NWARP*R-row tile; thread (tx, ty) owns the
+// strip of R cells (rows ty*R ...) of fine column tx.  R is ST_R, except
+// for matvec's and cheb_step's launches on levels too coarse to fill the
+// card (short_strips): there R = 1.  A staged window over the tile with a
+// one-cell halo has NWARP*R + 2 rows of ST_COLS.
+constexpr int ST_R = 4;
+constexpr int ST_TX = 32;
+constexpr int ST_TY = NWARP * ST_R;
+constexpr int ST_ROWS = ST_TY + 2;
+constexpr int ST_COLS = ST_TX + 2;
 
-// Replaces _mv_dot_kernel / pallas_matvec_pap (pallas_stencil.py:820, 856).
-// y = L x, and part[b, tile] = sum over the tile's cells of x * y.  Bound by
+// What the strip of thread (tx, ty) reads of a staged window t (N = R + 2
+// rows): window rows ty*R .. ty*R + R + 1 (the window row of cell i0 + r is
+// ty*R + r + 1), columns tx .. tx + 2.
+template <int N>
+__device__ __forceinline__ void read_strip(const float* t, int tx, int ty,
+                                           float (&n)[N][3]) {
+    const float* s = t + ty * (N - 2) * ST_COLS + tx;
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) n[r][q] = s[r * ST_COLS + q];
+    }
+}
+
+// (L v) at cell r of a strip whose neighbourhood is n (with the smoother
+// kernels' premultiplied weights, L Dinv v).
+template <int N>
+__device__ __forceinline__ float lap_strip(const float (&w)[9],
+                                           const float (&n)[N][3], int r) {
+    return lap3x3(w, n[r][0], n[r][1], n[r][2], n[r + 1][0], n[r + 1][1],
+                  n[r + 1][2], n[r + 2][0], n[r + 2][1], n[r + 2][2]);
+}
+
+// The body of matvec (DOT false) and matvec_pap (DOT true): y = L x, and
+// with DOT part[b, tile] = sum over the tile's cells of x * y.  Bound by
 // bytes (x in, y out, five planes).  x is staged through the ring; each
 // thread slides down its strip reading three x values per row from shared
-// memory (each x value about 3 times per strip, not 9), keeps the strip's
-// 36 weights in registers and its x . y in one register.  The block then
-// reduces once per column, in a fixed order (warp shuffles, then the warps'
-// sums in warp order), so p.Ap repeats to the bit; no atomics.  Columns go
-// in groups of 32, one extra barrier per group.
-__global__ void __launch_bounds__(NT)
-matvec_pap_kernel(Planes P, const float* __restrict__ x, float* __restrict__ y,
-                  float* __restrict__ part, int B, int cb, int H, int W) {
-    __shared__ __align__(16) float ring[NSTAGE][MP_ROWS * MP_COLS];
-    __shared__ float warp_sum[32][NWARP];
+// memory (each x value about 3 times per strip of 4, not 9) and keeps the
+// strip's weights in registers, summed in lap()'s order.  With DOT it
+// keeps its x . y in one register and the block reduces once per column, in
+// a fixed order (warp shuffles, then the warps' sums in warp order), so p.Ap
+// repeats to the bit; no atomics.  Columns go in groups of 32, one extra
+// barrier per group.
+template <bool DOT, int R>
+__device__ __forceinline__ void matvec_strip(
+        const Planes& P, const float* __restrict__ x, float* __restrict__ y,
+        float* __restrict__ part, int B, int cb, int H, int W) {
+    constexpr int TY = NWARP * R;
+    __shared__ __align__(16) float ring[NSTAGE][(TY + 2) * ST_COLS];
+    __shared__ float warp_sum[DOT ? 32 : 1][NWARP];
     const int tid = threadIdx.x;
     const int tx = tid & 31;
     const int ty = tid >> 5;
-    const int j = blockIdx.y * MP_TX + tx;
-    const int i0 = blockIdx.z * MP_TY + ty * MP_R;
-    const int ntile = gridDim.y * gridDim.z;
-    const int tile = blockIdx.z * gridDim.y + blockIdx.y;
+    const int j = blockIdx.y * ST_TX + tx;
+    const int i0 = blockIdx.z * TY + ty * R;
     const int b0 = blockIdx.x * cb;
     const int nb = min(cb, B - b0);
-    const Window<MP_ROWS, MP_COLS> win((int)blockIdx.z * MP_TY - 1,
-                                       (int)blockIdx.y * MP_TX - 1, H, W);
+    const Window<TY + 2, ST_COLS> win((int)blockIdx.z * TY - 1,
+                                      (int)blockIdx.y * ST_TX - 1, H, W);
     const size_t plane = (size_t)H * W;
     const auto fill = [&](float* buf, int c) {
         win.stage(buf, x + (b0 + c) * plane);
     };
     ring_start(ring, nb, fill);
-    float w[MP_R][9];
+    float w[R][9];
 #pragma unroll
-    for (int r = 0; r < MP_R; ++r) load_weights(P, i0 + r, j, H, W, w[r]);
+    for (int r = 0; r < R; ++r) load_weights(P, i0 + r, j, H, W, w[r]);
     const bool col_in = j < W;
     ring_walk(ring, nb, fill, [&](int c, const float* t) {
-        // window row of cell i0 + r is ty*MP_R + r + 1, its column tx + 1
-        const float* s = t + ty * MP_R * MP_COLS + tx;
-        float n[MP_R + 2][3];
-#pragma unroll
-        for (int r = 0; r < MP_R + 2; ++r) {
-#pragma unroll
-            for (int q = 0; q < 3; ++q) n[r][q] = s[r * MP_COLS + q];
-        }
+        float n[R + 2][3];
+        read_strip(t, tx, ty, n);
         float* yb = y + (b0 + c) * plane;
         float v = 0.0f;
 #pragma unroll
-        for (int r = 0; r < MP_R; ++r) {
-            const float yv = lap3x3(w[r], n[r][0], n[r][1], n[r][2],
-                                    n[r + 1][0], n[r + 1][1], n[r + 1][2],
-                                    n[r + 2][0], n[r + 2][1], n[r + 2][2]);
+        for (int r = 0; r < R; ++r) {
+            const float yv = lap_strip(w[r], n, r);
             if (col_in && i0 + r < H) yb[(size_t)(i0 + r) * W + j] = yv;
-            v += n[r + 1][1] * yv;
+            if (DOT) v += n[r + 1][1] * yv;
         }
+        if constexpr (DOT) {
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            v += __shfl_down_sync(0xffffffffu, v, off);
-        }
-        const int g = c & 31;
-        if (tx == 0) warp_sum[g][ty] = v;
-        if (g == 31 || c == nb - 1) {
-            // a group of up to 32 columns is done: one thread per column
-            // adds the warps' sums in warp order.  The ring's barrier at
-            // the next column keeps warp_sum from being overwritten first.
-            __syncthreads();
-            if (tid <= g) {
-                float sum = 0.0f;
+            for (int off = 16; off > 0; off >>= 1) {
+                v += __shfl_down_sync(0xffffffffu, v, off);
+            }
+            const int g = c & 31;
+            if (tx == 0) warp_sum[g][ty] = v;
+            if (g == 31 || c == nb - 1) {
+                // a group of up to 32 columns is done: one thread per
+                // column adds the warps' sums in warp order.  The ring's
+                // barrier at the next column keeps warp_sum from being
+                // overwritten first.
+                __syncthreads();
+                if (tid <= g) {
+                    float sum = 0.0f;
 #pragma unroll
-                for (int k = 0; k < NWARP; ++k) sum += warp_sum[tid][k];
-                part[(size_t)(b0 + c - g + tid) * ntile + tile] = sum;
+                    for (int k = 0; k < NWARP; ++k) sum += warp_sum[tid][k];
+                    const int ntile = gridDim.y * gridDim.z;
+                    const int tile = blockIdx.z * gridDim.y + blockIdx.y;
+                    part[(size_t)(b0 + c - g + tid) * ntile + tile] = sum;
+                }
             }
         }
     });
 }
 
-// Replaces _cheb_kernel / pallas_cheb_step (pallas_stencil.py:307, 341).
-// r' = r - L d;  d' = ca d + cb dinv r';  x' = x + d'.
+// Replaces _kernel / pallas_matvec (pallas_stencil.py:175, 900).  y = L x.
+// Staged as matvec_pap (its first design, a thread per cell of a 32 x 8
+// tile walking all B columns, launched 4 blocks at 32^2, the one level where
+// the main path's V-cycle runs it, and took 10 us there).
+template <int R>
 __global__ void __launch_bounds__(NT)
-cheb_step_kernel(Planes P, const float* __restrict__ dinv,
-                 const float* __restrict__ r, const float* __restrict__ d,
-                 const float* __restrict__ x, float* __restrict__ r_out,
-                 float* __restrict__ d_out, float* __restrict__ x_out,
-                 float ca, float cb, int B, int H, int W) {
-    const int j = blockIdx.x * TX + threadIdx.x;
-    const int i = blockIdx.y * TY + threadIdx.y;
-    if (i >= H || j >= W) return;
-    const Stencil9 k = load_stencil(P, i, j, H, W);
-    const size_t plane = (size_t)H * W;
-    const int at = i * W + j;
-    const float dv = __ldg(dinv + at);
-#pragma unroll 2
-    for (int b = 0; b < B; ++b) {
-        const size_t o = b * plane + at;
-        const float* db = d + b * plane;
-        const float rn = __ldg(r + o) - lap(k, db);
-        const float dn = ca * __ldg(db + at) + cb * (dv * rn);
-        r_out[o] = rn;
-        d_out[o] = dn;
-        x_out[o] = __ldg(x + o) + dn;
-    }
+matvec_kernel(Planes P, const float* __restrict__ x, float* __restrict__ y,
+              int B, int cb, int H, int W) {
+    matvec_strip<false, R>(P, x, y, nullptr, B, cb, H, W);
+}
+
+// Replaces _mv_dot_kernel / pallas_matvec_pap (pallas_stencil.py:820, 856).
+__global__ void __launch_bounds__(NT)
+matvec_pap_kernel(Planes P, const float* __restrict__ x, float* __restrict__ y,
+                  float* __restrict__ part, int B, int cb, int H, int W) {
+    matvec_strip<true, ST_R>(P, x, y, part, B, cb, H, W);
 }
 
 // residual_restrict: a 32 x 8 tile of coarse cells; thread (tx, ty) owns
@@ -451,30 +454,11 @@ residual_restrict_kernel(Planes P, const float* __restrict__ bvec,
     });
 }
 
-// cheb_init and cheb_finish, the smoother kernels that apply L Dinv: a
-// 32-column x CH_TY-row tile, thread (tx, ty) owning the strip of CH_R cells
-// (rows ty*CH_R ...) of fine column tx, as in matvec_pap.  A stage of the
-// ring holds the window of the block the stencil reads (b, r0) over the
-// tile with a one-cell halo; cheb_finish's also holds x1's tile.  dinv's
-// window, of the same geometry, is staged once per block.
-constexpr int CH_R = 4;
-constexpr int CH_TX = 32;
-constexpr int CH_TY = NWARP * CH_R;
-constexpr int CH_ROWS = CH_TY + 2;
-constexpr int CH_COLS = CH_TX + 2;
-
-// What the strip of thread (tx, ty) reads of a staged window t: window rows
-// ty*CH_R .. ty*CH_R + CH_R + 1 (the window row of cell i0 + r is
-// ty*CH_R + r + 1), columns tx .. tx + 2.
-__device__ __forceinline__ void read_strip(const float* t, int tx, int ty,
-                                           float (&n)[CH_R + 2][3]) {
-    const float* s = t + ty * CH_R * CH_COLS + tx;
-#pragma unroll
-    for (int r = 0; r < CH_R + 2; ++r) {
-#pragma unroll
-        for (int q = 0; q < 3; ++q) n[r][q] = s[r * CH_COLS + q];
-    }
-}
+// cheb_init and cheb_finish, the smoother kernels that apply L Dinv, are
+// strip kernels with strips of ST_R.  A stage of the ring holds the window
+// of the block the stencil reads (b, r0) over the tile with a one-cell
+// halo; cheb_finish's also holds x1's tile.  dinv's window, of the same
+// geometry, is staged once per block.
 
 // The weights of L Dinv and the dinv values of thread (tx, ty)'s strip, in
 // registers.  dsh is dinv's window over the tile, in the stencil window's
@@ -486,30 +470,23 @@ __device__ __forceinline__ void read_strip(const float* t, int tx, int ty,
 // so the two agree to the bit.
 __device__ __forceinline__ void strip_weights_dinv(
         const Planes& P, const float* dsh, int i0, int j, int tx, int ty,
-        int H, int W, float (&w)[CH_R][9], float (&dv)[CH_R]) {
+        int H, int W, float (&w)[ST_R][9], float (&dv)[ST_R]) {
     constexpr int di[9] = {0, 0, 0, 1, -1, 1, -1, -1, 1};
     constexpr int dj[9] = {0, 1, -1, 0, 0, 1, -1, 1, -1};
 #pragma unroll
-    for (int r = 0; r < CH_R; ++r) load_weights(P, i0 + r, j, H, W, w[r]);
+    for (int r = 0; r < ST_R; ++r) load_weights(P, i0 + r, j, H, W, w[r]);
     __pipeline_wait_prior(NSTAGE - 2);
     __syncthreads();
-    const float* s = dsh + (ty * CH_R + 1) * CH_COLS + tx + 1;
+    const float* s = dsh + (ty * ST_R + 1) * ST_COLS + tx + 1;
 #pragma unroll
-    for (int r = 0; r < CH_R; ++r) {
-        const float* sr = s + r * CH_COLS;
+    for (int r = 0; r < ST_R; ++r) {
+        const float* sr = s + r * ST_COLS;
 #pragma unroll
-        for (int q = 0; q < 9; ++q) w[r][q] *= sr[di[q] * CH_COLS + dj[q]];
+        for (int q = 0; q < 9; ++q) w[r][q] *= sr[di[q] * ST_COLS + dj[q]];
         dv[r] = sr[0];
     }
 }
 
-// (L Dinv v) at cell r of a strip whose neighbourhood is n.
-__device__ __forceinline__ float lap_strip(const float (&w)[9],
-                                           const float (&n)[CH_R + 2][3],
-                                           int r) {
-    return lap3x3(w, n[r][0], n[r][1], n[r][2], n[r + 1][0], n[r + 1][1],
-                  n[r + 1][2], n[r + 2][0], n[r + 2][1], n[r + 2][2]);
-}
 
 // Replaces _cheb_init_kernel / pallas_cheb_init (pallas_stencil.py:473,
 // 502).  The degree-2 Chebyshev smoother from x = 0 in one pass:
@@ -525,32 +502,32 @@ cheb_init_kernel(Planes P, const float* __restrict__ dinv,
                  const float* __restrict__ bvec, float* __restrict__ x,
                  float c, float ca, float cb, int B, int chunk, int H,
                  int W) {
-    __shared__ __align__(16) float ring[NSTAGE][CH_ROWS * CH_COLS];
-    __shared__ float dsh[CH_ROWS * CH_COLS];
+    __shared__ __align__(16) float ring[NSTAGE][ST_ROWS * ST_COLS];
+    __shared__ float dsh[ST_ROWS * ST_COLS];
     const int tx = threadIdx.x & 31;
     const int ty = threadIdx.x >> 5;
-    const int j = blockIdx.y * CH_TX + tx;
-    const int i0 = blockIdx.z * CH_TY + ty * CH_R;
+    const int j = blockIdx.y * ST_TX + tx;
+    const int i0 = blockIdx.z * ST_TY + ty * ST_R;
     const int b0 = blockIdx.x * chunk;
     const int nb = min(chunk, B - b0);
-    const Window<CH_ROWS, CH_COLS> win((int)blockIdx.z * CH_TY - 1,
-                                       (int)blockIdx.y * CH_TX - 1, H, W);
+    const Window<ST_ROWS, ST_COLS> win((int)blockIdx.z * ST_TY - 1,
+                                       (int)blockIdx.y * ST_TX - 1, H, W);
     const size_t plane = (size_t)H * W;
     const auto fill = [&](float* buf, int k) {
         win.stage(buf, bvec + (b0 + k) * plane);
     };
     win.stage(dsh, dinv);   // joins column 0's copy group
     ring_start(ring, nb, fill);
-    float w[CH_R][9], dv[CH_R];
+    float w[ST_R][9], dv[ST_R];
     strip_weights_dinv(P, dsh, i0, j, tx, ty, H, W, w, dv);
     const float c0 = (1.0f + ca) * c;
     const bool col_in = j < W;
     ring_walk(ring, nb, fill, [&](int k, const float* t) {
-        float n[CH_R + 2][3];
+        float n[ST_R + 2][3];
         read_strip(t, tx, ty, n);
         float* xb = x + (b0 + k) * plane;
 #pragma unroll
-        for (int r = 0; r < CH_R; ++r) {
+        for (int r = 0; r < ST_R; ++r) {
             const float bv = n[r + 1][1];
             const float r1 = bv - c * lap_strip(w[r], n, r);
             if (col_in && i0 + r < H) {
@@ -595,8 +572,8 @@ residual_init_kernel(Planes P, const float* __restrict__ dinv,
 // from device memory when its column is computed made the kernel twice as
 // slow on the H100: those loads had nothing in flight ahead of them).
 struct CFStage {
-    float r[CH_ROWS * CH_COLS];
-    float x1[CH_TY * CH_TX];
+    float r[ST_ROWS * ST_COLS];
+    float x1[ST_TY * ST_TX];
 };
 
 __global__ void __launch_bounds__(NT)
@@ -605,17 +582,17 @@ cheb_finish_kernel(Planes P, const float* __restrict__ dinv,
                    float* __restrict__ x2, float c, float ca, float cb, int B,
                    int chunk, int H, int W) {
     __shared__ __align__(16) CFStage ring[NSTAGE];
-    __shared__ float dsh[CH_ROWS * CH_COLS];
+    __shared__ float dsh[ST_ROWS * ST_COLS];
     const int tx = threadIdx.x & 31;
     const int ty = threadIdx.x >> 5;
-    const int j = blockIdx.y * CH_TX + tx;
-    const int i0 = blockIdx.z * CH_TY + ty * CH_R;
+    const int j = blockIdx.y * ST_TX + tx;
+    const int i0 = blockIdx.z * ST_TY + ty * ST_R;
     const int b0 = blockIdx.x * chunk;
     const int nb = min(chunk, B - b0);
-    const int gi0 = (int)blockIdx.z * CH_TY;
-    const int gj0 = (int)blockIdx.y * CH_TX;
-    const Window<CH_ROWS, CH_COLS> rwin(gi0 - 1, gj0 - 1, H, W);
-    const Window<CH_TY, CH_TX> xwin(gi0, gj0, H, W);
+    const int gi0 = (int)blockIdx.z * ST_TY;
+    const int gj0 = (int)blockIdx.y * ST_TX;
+    const Window<ST_ROWS, ST_COLS> rwin(gi0 - 1, gj0 - 1, H, W);
+    const Window<ST_TY, ST_TX> xwin(gi0, gj0, H, W);
     const size_t plane = (size_t)H * W;
     const auto fill = [&](CFStage& st, int k) {
         rwin.stage(st.r, r0 + (b0 + k) * plane);
@@ -623,22 +600,95 @@ cheb_finish_kernel(Planes P, const float* __restrict__ dinv,
     };
     rwin.stage(dsh, dinv);   // joins column 0's copy group
     ring_start(ring, nb, fill);
-    float w[CH_R][9], dv[CH_R];
+    float w[ST_R][9], dv[ST_R];
     strip_weights_dinv(P, dsh, i0, j, tx, ty, H, W, w, dv);
     const float cac = ca * c;
     const bool col_in = j < W;
     ring_walk(ring, nb, fill, [&](int k, const CFStage& st) {
-        float n[CH_R + 2][3];
+        float n[ST_R + 2][3];
         read_strip(st.r, tx, ty, n);
-        const float* xs = st.x1 + ty * CH_R * CH_TX + tx;
+        const float* xs = st.x1 + ty * ST_R * ST_TX + tx;
         float* xb = x2 + (b0 + k) * plane;
 #pragma unroll
-        for (int r = 0; r < CH_R; ++r) {
+        for (int r = 0; r < ST_R; ++r) {
             const float rv = n[r + 1][1];
             const float r1 = rv - c * lap_strip(w[r], n, r);
             if (col_in && i0 + r < H) {
                 xb[(size_t)(i0 + r) * W + j] =
-                    xs[r * CH_TX] + cac * (dv[r] * rv) + cb * (dv[r] * r1);
+                    xs[r * ST_TX] + cac * (dv[r] * rv) + cb * (dv[r] * r1);
+            }
+        }
+    });
+}
+
+// Replaces _cheb_kernel / pallas_cheb_step (pallas_stencil.py:307, 341).
+// One step of the generic (not premultiplied) smoother:
+//   r' = r - L d;  d' = ca d + cb dinv r';  x' = x + d'.
+// Bound by bytes (r, d and x in, r', d' and x' out, five planes and dinv).
+// cheb_finish's design with the base weights: d, which the stencil reads,
+// is staged through the ring with a one-cell halo, and r's and x's tiles in
+// the same stage; dinv is read only at the strip's own cells, so its four
+// values are loaded with the weights.  Its first design (a thread per cell
+// of a 32 x 8 tile walking all B columns) launched 4 blocks at 32^2, the one
+// level where the main path's V-cycle runs it, and took 11 us there.
+template <int R>
+struct CSStage {
+    static constexpr int TY = NWARP * R;
+    float d[(TY + 2) * ST_COLS];
+    float r[TY * ST_TX];
+    float x[TY * ST_TX];
+};
+
+template <int R>
+__global__ void __launch_bounds__(NT)
+cheb_step_kernel(Planes P, const float* __restrict__ dinv,
+                 const float* __restrict__ r, const float* __restrict__ d,
+                 const float* __restrict__ x, float* __restrict__ r_out,
+                 float* __restrict__ d_out, float* __restrict__ x_out,
+                 float ca, float cb, int B, int chunk, int H, int W) {
+    using Stage = CSStage<R>;
+    constexpr int TY = Stage::TY;
+    __shared__ __align__(16) Stage ring[NSTAGE];
+    const int tx = threadIdx.x & 31;
+    const int ty = threadIdx.x >> 5;
+    const int j = blockIdx.y * ST_TX + tx;
+    const int i0 = blockIdx.z * TY + ty * R;
+    const int b0 = blockIdx.x * chunk;
+    const int nb = min(chunk, B - b0);
+    const int gi0 = (int)blockIdx.z * TY;
+    const int gj0 = (int)blockIdx.y * ST_TX;
+    const Window<TY + 2, ST_COLS> dwin(gi0 - 1, gj0 - 1, H, W);
+    const Window<TY, ST_TX> twin(gi0, gj0, H, W);
+    const size_t plane = (size_t)H * W;
+    const auto fill = [&](Stage& st, int k) {
+        const size_t o = (b0 + k) * plane;
+        dwin.stage(st.d, d + o);
+        twin.stage(st.r, r + o);
+        twin.stage(st.x, x + o);
+    };
+    ring_start(ring, nb, fill);
+    const bool col_in = j < W;
+    float w[R][9], dv[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+        load_weights(P, i0 + q, j, H, W, w[q]);
+        dv[q] = col_in && i0 + q < H ? __ldg(dinv + (size_t)(i0 + q) * W + j)
+                                     : 0.0f;
+    }
+    ring_walk(ring, nb, fill, [&](int k, const Stage& st) {
+        float n[R + 2][3];
+        read_strip(st.d, tx, ty, n);
+        const int t = ty * R * ST_TX + tx;
+        const size_t o = (b0 + k) * plane + (size_t)i0 * W + j;
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+            const float rn = st.r[t + q * ST_TX] - lap_strip(w[q], n, q);
+            const float dn = ca * n[q + 1][1] + cb * (dv[q] * rn);
+            if (col_in && i0 + q < H) {
+                const size_t at = o + (size_t)q * W;
+                r_out[at] = rn;
+                d_out[at] = dn;
+                x_out[at] = st.x[t + q * ST_TX] + dn;
             }
         }
     });
@@ -655,17 +705,26 @@ inline int launch_error(int B, int H, int W) {
     return -1;
 }
 
+// The current card's SM count.  A failed query leaves its error for the
+// caller's cudaGetLastError().
+inline int card_sms() {
+    int dev = 0, sms = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+}
+
 // Grid of a staged kernel over tiles_x x tiles_y tiles: x is the chunk of
 // columns, fastest, so that the chunks of one tile run side by side.  Each
 // chunk holds cb columns (cb is returned): the most that still gives the
-// card two waves of resident blocks, so the weights are read as few times
-// as the card's occupancy allows.  A failed query leaves its error for the
-// caller's cudaGetLastError().
+// card (sms SMs, queried unless the launch has done so already) two waves of
+// resident blocks, so the weights are read as few times as the card's
+// occupancy allows.  A failed query leaves its error for the caller's
+// cudaGetLastError().
 template <class Kernel>
-dim3 chunked_grid(Kernel kernel, int tiles_x, int tiles_y, int B, int* cb) {
-    int dev = 0, sms = 1, per_sm = 1;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+dim3 chunked_grid(Kernel kernel, int tiles_x, int tiles_y, int B, int* cb,
+                  int sms = card_sms()) {
+    int per_sm = 1;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, 0);
     const long want = 2L * sms * (per_sm > 0 ? per_sm : 1);
     const long tiles = (long)tiles_x * tiles_y;
@@ -678,13 +737,46 @@ dim3 chunked_grid(Kernel kernel, int tiles_x, int tiles_y, int B, int* cb) {
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// Whether matvec and cheb_step take strips of one cell (8-row tiles): where
+// strips of ST_R, even at one column a block (chunked_grid's finest split),
+// would leave SMs without a block.  The V-cycle's 32^2 level at B = 32 then
+// gets 128 blocks instead of 32, each waiting on a quarter of the copies
+// and weight loads.  The launch queries the SM count once, for this test
+// and for chunked_grid.
+inline bool short_strips(int sms, int B, int H, int W) {
+    return (long)ceil_div(W, ST_TX) * ceil_div(H, ST_TY) * B < sms;
+}
+
+template <int R>
+int launch_matvec(const Planes& P, const float* x, float* y, int B, int H,
+                  int W, int sms, cudaStream_t stream) {
+    int cb = B;
+    const dim3 grid = chunked_grid(matvec_kernel<R>, ceil_div(W, ST_TX),
+                                   ceil_div(H, NWARP * R), B, &cb, sms);
+    matvec_kernel<R><<<grid, NT, 0, stream>>>(P, x, y, B, cb, H, W);
+    return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch_cheb_step(const Planes& P, const float* dinv, const float* r,
+                     const float* d, const float* x, float* r_out,
+                     float* d_out, float* x_out, float ca, float cb, int B,
+                     int H, int W, int sms, cudaStream_t stream) {
+    int chunk = B;
+    const dim3 grid = chunked_grid(cheb_step_kernel<R>, ceil_div(W, ST_TX),
+                                   ceil_div(H, NWARP * R), B, &chunk, sms);
+    cheb_step_kernel<R><<<grid, NT, 0, stream>>>(
+        P, dinv, r, d, x, r_out, d_out, x_out, ca, cb, B, chunk, H, W);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // matvec_pap's partial sums per column: one per tile of the grid.
 int cs_matvec_pap_blocks(int H, int W) {
-    return ceil_div(W, MP_TX) * ceil_div(H, MP_TY);
+    return ceil_div(W, ST_TX) * ceil_div(H, ST_TY);
 }
 
 int cs_matvec(const float* we, const float* ws, const float* wse,
@@ -693,9 +785,11 @@ int cs_matvec(const float* we, const float* ws, const float* wse,
     const int bad = launch_error(B, H, W);
     if (bad >= 0) return bad;
     const Planes P{we, ws, wse, wne, diag};
-    matvec_kernel<<<tiles(H, W), dim3(TX, TY), 0, (cudaStream_t)stream>>>(
-        P, x, y, B, H, W);
-    return (int)cudaGetLastError();
+    const cudaStream_t s = (cudaStream_t)stream;
+    const int sms = card_sms();
+    return short_strips(sms, B, H, W)
+               ? launch_matvec<1>(P, x, y, B, H, W, sms, s)
+               : launch_matvec<ST_R>(P, x, y, B, H, W, sms, s);
 }
 
 int cs_matvec_pap(const float* we, const float* ws, const float* wse,
@@ -705,8 +799,8 @@ int cs_matvec_pap(const float* we, const float* ws, const float* wse,
     if (bad >= 0) return bad;
     const Planes P{we, ws, wse, wne, diag};
     int cb = B;
-    const dim3 grid = chunked_grid(matvec_pap_kernel, ceil_div(W, MP_TX),
-                                   ceil_div(H, MP_TY), B, &cb);
+    const dim3 grid = chunked_grid(matvec_pap_kernel, ceil_div(W, ST_TX),
+                                   ceil_div(H, ST_TY), B, &cb);
     matvec_pap_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
         P, x, y, part, B, cb, H, W);
     return (int)cudaGetLastError();
@@ -720,9 +814,13 @@ int cs_cheb_step(const float* we, const float* ws, const float* wse,
     const int bad = launch_error(B, H, W);
     if (bad >= 0) return bad;
     const Planes P{we, ws, wse, wne, diag};
-    cheb_step_kernel<<<tiles(H, W), dim3(TX, TY), 0, (cudaStream_t)stream>>>(
-        P, dinv, r, d, x, r_out, d_out, x_out, ca, cb, B, H, W);
-    return (int)cudaGetLastError();
+    const cudaStream_t s = (cudaStream_t)stream;
+    const int sms = card_sms();
+    return short_strips(sms, B, H, W)
+               ? launch_cheb_step<1>(P, dinv, r, d, x, r_out, d_out, x_out,
+                                     ca, cb, B, H, W, sms, s)
+               : launch_cheb_step<ST_R>(P, dinv, r, d, x, r_out, d_out,
+                                        x_out, ca, cb, B, H, W, sms, s);
 }
 
 int cs_residual_restrict(const float* we, const float* ws, const float* wse,
@@ -749,8 +847,8 @@ int cs_cheb_init(const float* we, const float* ws, const float* wse,
     if (bad >= 0) return bad;
     const Planes P{we, ws, wse, wne, diag};
     int chunk = B;
-    const dim3 grid = chunked_grid(cheb_init_kernel, ceil_div(W, CH_TX),
-                                   ceil_div(H, CH_TY), B, &chunk);
+    const dim3 grid = chunked_grid(cheb_init_kernel, ceil_div(W, ST_TX),
+                                   ceil_div(H, ST_TY), B, &chunk);
     cheb_init_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
         P, dinv, b, x, c, ca, cb, B, chunk, H, W);
     return (int)cudaGetLastError();
@@ -778,8 +876,8 @@ int cs_cheb_finish(const float* we, const float* ws, const float* wse,
     if (bad >= 0) return bad;
     const Planes P{we, ws, wse, wne, diag};
     int chunk = B;
-    const dim3 grid = chunked_grid(cheb_finish_kernel, ceil_div(W, CH_TX),
-                                   ceil_div(H, CH_TY), B, &chunk);
+    const dim3 grid = chunked_grid(cheb_finish_kernel, ceil_div(W, ST_TX),
+                                   ceil_div(H, ST_TY), B, &chunk);
     cheb_finish_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
         P, dinv, r0, x1, x2, c, ca, cb, B, chunk, H, W);
     return (int)cudaGetLastError();

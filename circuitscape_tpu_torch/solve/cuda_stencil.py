@@ -33,23 +33,24 @@ offsets: 5 instead of 9 plane bytes per cell.  For L Dinv the TPU reads
 nine premultiplied planes plus Dinv; these kernels form
 w * Dinv[neighbour] in registers, once per cell: 6 plane reads, not 10.
 
-matvec, cheb_step and residual_init give a thread one cell and read x's
-neighbours through L1, where the adjacent threads of the tile have
-already brought them.  matvec_pap, residual_restrict, cheb_init and
-cheb_finish, which reached under half of their byte bound that way (at
+residual_init gives a thread one cell and reads x's neighbours through
+L1, where the adjacent threads of the tile have already brought them.
+The other six, which reached under half of their byte bound that way (at
 1024^2, or over a bench job's levels), stage each column's tile of the
 block the stencil reads with a one-cell halo (x; b for cheb_init, r0
-for cheb_finish), and the tile of any other input (residual_restrict:
-b; cheb_finish: x1), in shared memory through a three-buffer cp.async
-ring (the next two columns' copies in flight while one is computed; the
-copy zero-fills cells outside the grid, and takes any width and
-alignment) and give a thread several cells: matvec_pap and the two
-smoother kernels a vertical strip of four in one column (each staged
-value read ~3 times per strip from shared memory, not 9 through L1;
-matvec_pap reduces once per column per block rather than per cell, the
-smoother kernels hold the strip's 36 Dinv-premultiplied weights in
-registers), and residual_restrict one 2x2 fine patch (its four
-residuals summed in registers, one coalesced store of its coarse cell).
+for cheb_finish, d for cheb_step), and the tile of any other input
+(residual_restrict: b; cheb_finish: x1; cheb_step: r and x), in shared
+memory through a three-buffer cp.async ring (the next two columns'
+copies in flight while one is computed; the copy zero-fills cells
+outside the grid, and takes any width and alignment) and give a thread
+several cells: matvec, matvec_pap, cheb_step and the two smoother
+kernels a vertical strip of four in one column (matvec and cheb_step:
+one cell where strips of four would leave SMs idle; each staged value read
+~3 times per strip from shared memory, not 9 through L1; matvec_pap
+reduces once per column per block rather than per cell, the smoother
+kernels hold the strip's 36 Dinv-premultiplied weights in registers),
+and residual_restrict one 2x2 fine patch (its four residuals summed in
+registers, one coalesced store of its coarse cell).
 Their blocks each take a chunk of the batch, sized per launch so the
 grid fills two waves of the card: on the coarse levels the batch is
 spread over blocks instead of walked 32 deep by each thread.

@@ -239,7 +239,8 @@ def _colsum(a: torch.Tensor) -> torch.Tensor:
 
 class CGState(NamedTuple):
     """The JAX loop carry: device blocks and per-column sums, plus the
-    host-side iteration count, stall detector and best residual."""
+    host-side iteration count, stall detector and best residual (a numpy
+    scalar of B's float type, as JAX carries it)."""
 
     X: torch.Tensor
     R: torch.Tensor
@@ -247,19 +248,36 @@ class CGState(NamedTuple):
     P: torch.Tensor
     rz: torch.Tensor
     k: int
-    best: float
+    best: np.floating
     since: int
     rn2: torch.Tensor
+
+
+def _cg_bounded(worst: np.floating, best: np.floating) -> bool:
+    """The CG loop's divergence guard, worst <= best * 8, computed in
+    best's float type as the JAX loop computes it: in float32 the first
+    best (finfo.max) times 8 overflows to inf, so a first worst of inf
+    does not stop the loop."""
+    with np.errstate(over="ignore"):
+        return bool(worst <= best * type(best)(8))
+
+
+def _cg_improved(worst: np.floating, best: np.floating) -> bool:
+    """The stall detector's test, worst < best * 0.999, computed in best's
+    float type as the JAX loop computes it (0.999 and the product both
+    round to float32)."""
+    return bool(worst < best * type(best)(0.999))
 
 
 def _cg_state_init(A: StencilOperator, B: torch.Tensor, prec=None,
                    prec_apply=None) -> CGState:
     Z = _make_prec_apply(A, prec, prec_apply)(B)
     R = B
+    ftype = {torch.float32: np.float32, torch.float64: np.float64}[B.dtype]
     # rn2 (per-column ||R||^2) rides the state so neither the loop
     # condition nor the stall detector recomputes the reduction
     return CGState(torch.zeros_like(B), R, Z, Z, _colsum(R * Z), 0,
-                   float(torch.finfo(B.dtype).max), 0, _colsum(R * R))
+                   np.finfo(ftype).max, 0, _colsum(R * R))
 
 
 def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
@@ -273,25 +291,27 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
     rounding floor; the `worst <= best * 8` guard detects divergence
     past it (once the recurrence hits the floor, beta turns into
     amplified noise).  Both exits leave the outer f64 refinement to
-    re-residualize.  The matvec + p.Ap of the body is one kernel
-    (cuda_stencil.matvec_pap), as is the true-residual replacement
-    every 64 iterations (cuda_stencil.matvec)."""
+    re-residualize.  Both guards compare in B's float type, as the JAX
+    loop does (_cg_bounded, _cg_improved).  The matvec + p.Ap of the
+    body is one kernel (cuda_stencil.matvec_pap), as is the
+    true-residual replacement every 64 iterations (cuda_stencil.matvec)."""
     from .cuda_stencil import matvec, matvec_pap
 
     apply_M = _make_prec_apply(A, prec, prec_apply)
     X, R, Z, P, rz, k, best, since, rn2 = state
+    ftype = type(best)
 
     def stop_quantities(rn2):
         resnorm = torch.sqrt(rn2)
         worst = torch.max(resnorm / safe_bnorm)
         active = torch.any(resnorm > tol)
         worst_h, active_h = torch.stack(
-            [worst.float(), active.float()]).tolist()
-        return worst_h, active_h > 0
+            [worst, active.to(worst.dtype)]).tolist()
+        return ftype(worst_h), active_h > 0
 
     worst, active = stop_quantities(rn2)
     while (k < itmax and k < k_stop and since < 50 and
-           worst <= best * 8 and active):
+           _cg_bounded(worst, best) and active):
         AP, pAp = matvec_pap(A, P)
         alpha = torch.where(pAp > 0, rz / torch.where(pAp == 0, 1.0, pAp),
                             0.0)
@@ -312,8 +332,8 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
         rn2 = _colsum(R * R)
         k += 1
         worst, active = stop_quantities(rn2)
-        improved = worst < best * 0.999
-        best = min(best, worst)
+        improved = _cg_improved(worst, best)
+        best = np.minimum(best, worst)
         since = 0 if improved else since + 1
     return CGState(X, R, Z, P, rz, k, best, since, rn2)
 

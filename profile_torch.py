@@ -9,9 +9,10 @@ with --maps, the cumulative and max current maps on, which solves every
 pair) through circuitscape_tpu_torch.compute(..., "cuda"): one warm run,
 then one run under torch.profiler.  Prints, as JSON lines:
   - the job's wall time, host-timer sections and solver stats;
-  - device time per kernel name (sum and count) over the run, the
-    device's busy time (union of kernel intervals) and its idle share
-    of the run's wall time;
+  - device time per kernel name (sum and count) over the run: the 25
+    largest, and each of the port's seven kernels under its wrapper's
+    name; the device's busy time (union of kernel intervals) and its
+    idle share of the run's wall time;
 and, given --trace, writes the Chrome trace there.  Fails without a
 CUDA device.
 """
@@ -19,6 +20,7 @@ CUDA device.
 import argparse
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -59,6 +61,7 @@ def main():
     import circuitscape_tpu_torch as cst
     from chip_smoke import card_line, make_job
     from circuitscape_tpu_torch import stats
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
     from circuitscape_tpu_torch.timer import CSTIMER
     from torch.profiler import ProfilerActivity, profile
 
@@ -91,6 +94,15 @@ def main():
         s[1] += 1
     busy = _busy_us(kernels) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the port's own kernels, each under its wrapper's name, whatever
+    # their rank (a kernel name holds "<name>_kernel" or "<name>_kernel<R>")
+    port = {}
+    for k, (us, n) in by_name.items():
+        m = re.search(r"::(\w+)_kernel\b", k)
+        if m and m.group(1) in cs.LAUNCHES:
+            s = port.setdefault(m.group(1), [0.0, 0])
+            s[0] += us / 1e3
+            s[1] += n
     print(json.dumps({"size": args.size, "points": args.points,
                       "maps": args.maps,
                       "wall_s": wall, "timers_s": timers,
@@ -99,6 +111,8 @@ def main():
     print(json.dumps({"device_busy_s": busy,
                       "device_idle_share": 1.0 - busy / wall,
                       "n_kernels": len(kernels),
+                      "port_kernels_ms": {k: [round(v[0], 4), v[1]]
+                                          for k, v in sorted(port.items())},
                       "kernels_ms": {k: [round(v[0] / 1e3, 4), v[1]]
                                      for k, v in top[:25]}}))
     if args.trace:

@@ -87,19 +87,26 @@ def test_wrappers_refuse_what_kernels_do_not_take(dev):
 
 # the staged kernels (tiles in shared memory, a chunk of the batch per
 # block): every tile edge, odd sides, widths that are not a multiple of 32
-# or 4, and the main path's fine level
-STAGED_SHAPES = [(1, 1), (2, 3), (31, 33), (37, 53), (64, 100), (129, 257),
-                 (257, 333)]
+# or 4, the coarse level where the V-cycle runs matvec and cheb_step, and
+# the wide-grid width the TPU kernels tile by columns (pallas_stencil.py:
+# 357, 911)
+STAGED_SHAPES = [(1, 1), (2, 3), (31, 33), (32, 32), (37, 53), (64, 100),
+                 (129, 257), (257, 333), (64, 4200)]
 
 
 def _blocks(B, H, W, dev, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn((B, H, W), generator=g, device=dev)
-            for _ in range(2)]
+            for _ in range(3)]
 
 
-def _smoother_match_plain(A, dinv, x, b):
+def _staged_match_plain(A, dinv, x, b, d):
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    _close(cs.residual_restrict(A, b, x), cs.residual_restrict_plain(A, b, x))
+    _close(cs.matvec(A, x), cs.matvec_plain(A, x))
+    _close(cs.matvec_pap(A, x), cs.matvec_pap_plain(A, x))
+    _close(cs.cheb_step(A, dinv, b, d, x, 0.37, 1.21),
+           cs.cheb_step_plain(A, dinv, b, d, x, 0.37, 1.21))
     c, ca, cb = 0.8, 0.33, 1.07
     _close(cs.cheb_init(A, dinv, b, c, ca, cb),
            cs.cheb_init_plain(A, dinv, b, c, ca, cb))
@@ -110,22 +117,17 @@ def _smoother_match_plain(A, dinv, x, b):
 @pytest.mark.parametrize("B", [1, 2, 3, 5, 8, 32])
 @pytest.mark.parametrize("shape", STAGED_SHAPES)
 def test_staged_kernels_match_plain(dev, B, shape):
-    from circuitscape_tpu_torch.solve import cuda_stencil as cs
     A, dinv, _ = _operator(*shape, dev)
-    x, b = _blocks(B, *shape, dev, seed=B)
-    _close(cs.residual_restrict(A, b, x), cs.residual_restrict_plain(A, b, x))
-    _close(cs.matvec_pap(A, x), cs.matvec_pap_plain(A, x))
-    _smoother_match_plain(A, dinv, x, b)
+    x, b, d = _blocks(B, *shape, dev, seed=B)
+    _staged_match_plain(A, dinv, x, b, d)
     torch.cuda.synchronize()
 
 
 def test_staged_kernels_match_plain_at_fine_level(dev):
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
     A, dinv, _ = _operator(1024, 1024, dev)
-    x, b = _blocks(32, 1024, 1024, dev, seed=5)
-    _close(cs.residual_restrict(A, b, x), cs.residual_restrict_plain(A, b, x))
-    _close(cs.matvec_pap(A, x), cs.matvec_pap_plain(A, x))
-    _smoother_match_plain(A, dinv, x, b)
+    x, b, d = _blocks(32, 1024, 1024, dev, seed=5)
+    _staged_match_plain(A, dinv, x, b, d)
     # b one float off an 8-byte boundary: the scalar path of b's patch
     bb = torch.empty(b.numel() + 1, device=dev)
     bb[1:] = b.reshape(-1)
@@ -138,7 +140,7 @@ def test_staged_kernels_match_plain_at_fine_level(dev):
 def test_matvec_pap_repeats_to_the_bit(dev, shape):
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
     A, _, _ = _operator(*shape, dev)
-    x, _ = _blocks(32, *shape, dev, seed=9)
+    x = _blocks(32, *shape, dev, seed=9)[0]
     y1, p1 = cs.matvec_pap(A, x)
     y2, p2 = cs.matvec_pap(A, x)
     assert torch.equal(p1, p2) and torch.equal(y1, y2)

@@ -199,7 +199,8 @@ def host_source(cu: str) -> str:
         return (f"emu::launch({grid}, {block}, [&] {{ "
                 f"{m.group(1)}({m.group(3)}); }});")
     return ('#include "cuda_host.h"\n' +
-            re.sub(r"(\w+)<<<(.*?)>>>\((.*?)\);", launch, cu, flags=re.S))
+            re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", launch, cu,
+                   flags=re.S))
 
 
 @pytest.fixture(scope="module")
@@ -313,8 +314,9 @@ def test_kernel_matches_plain_on_host(lib, name, shape):
 
 
 @pytest.mark.parametrize("card", [(1, 1), (132, 3)])
-@pytest.mark.parametrize("name", ["matvec_pap", "residual_restrict",
-                                  "cheb_init", "cheb_finish"])
+@pytest.mark.parametrize("name", ["matvec", "matvec_pap", "cheb_step",
+                                  "residual_restrict", "cheb_init",
+                                  "cheb_finish"])
 @pytest.mark.parametrize("B", [1, 5, 40])
 def test_staged_kernel_column_chunks_on_host(lib, name, B, card):
     """The staged kernels with all B columns in one chunk per tile (a card

@@ -8,6 +8,7 @@ import pytest
 import torch
 from scipy.ndimage import label
 
+import jax
 import jax.numpy as jnp
 
 from circuitscape_tpu.solve import prepare as jpr
@@ -77,6 +78,150 @@ def test_stencil_cg_matches_jax():
     assert abs(int(itt) - int(itj)) <= 2
     Xj = np.asarray(Xj)
     assert np.abs(Xt.numpy() - Xj).max() <= 1e-3 * np.abs(Xj).max()
+
+
+F32 = np.float32
+F32_MAX = np.finfo(F32).max
+
+
+def _rounds_down_best():
+    """A float32 best whose float32 product best * 0.999 lies below the
+    float64 product of the same numbers: at worst equal to the float32
+    product, float32 says "not improved" where float64 says "improved"."""
+    for i in range(1, 1 << 16):
+        best = F32(1.0) + F32(i) * np.finfo(F32).eps
+        if float(best * F32(0.999)) < float(best) * 0.999:
+            return best
+    raise AssertionError("no float32 best rounds down")
+
+
+_B = _rounds_down_best()
+_T = _B * F32(0.999)              # the float32 stall threshold of _B
+GUARD_CASES = [
+    # (worst, best): the first best of the loop, and a first worst of inf
+    (F32(np.inf), F32_MAX),
+    (F32(3.0), F32_MAX),
+    # worst at the float32 threshold of a best that rounds down, and one
+    # float32 step either side of it
+    (_T, _B),
+    (np.nextafter(_T, F32(0)), _B),
+    (np.nextafter(_T, F32(np.inf)), _B),
+    # worst at best * 8 (exact in float32) and one step above it
+    (F32(8e-3) * F32(8), F32(8e-3)),
+    (np.nextafter(F32(8e-3) * F32(8), F32(np.inf)), F32(8e-3)),
+    # ordinary values
+    (F32(5e-4), F32(1e-3)),
+    (F32(1e-3), F32(1e-3)),
+    (F32(2e-2), F32(1e-3)),
+    (F32(np.nan), F32(1e-3)),
+]
+
+
+@jax.jit
+def _jax_guards(worst, best):
+    """The JAX loop's divergence guard (in not_done) and stall test (in
+    body), as circuitscape_tpu/solve/stencil.py writes them, on float32
+    scalars."""
+    return worst <= best * 8, worst < best * 0.999
+
+
+@pytest.mark.parametrize("worst,best", GUARD_CASES)
+def test_cg_guards_decide_as_jax(worst, best):
+    """The port's CG guards compare in float32 as the JAX loop does: the
+    same (worst, best) give the same decisions to continue and to count
+    an improvement, and the same next best."""
+    assert worst.dtype == best.dtype == F32
+    bounded, improved = _jax_guards(jnp.asarray(worst, jnp.float32),
+                                    jnp.asarray(best, jnp.float32))
+    assert tst._cg_bounded(worst, best) == bool(bounded)
+    assert tst._cg_improved(worst, best) == bool(improved)
+    nxt = np.minimum(best, worst)
+    jnxt = np.asarray(jnp.minimum(jnp.asarray(best, jnp.float32),
+                                  jnp.asarray(worst, jnp.float32)))
+    assert nxt.dtype == jnxt.dtype == F32
+    np.testing.assert_array_equal(nxt, jnxt)
+
+
+def test_cg_state_carries_best_in_float32():
+    A = tst.stencil_from_gmap_device(torch.ones((4, 5)), False, False)
+    A = tst._to_dtype(A, torch.float32)
+    st = tst._cg_state_init(A, torch.ones((2, 4, 5)))
+    assert type(st.best) is F32 and st.best == F32_MAX
+
+
+_LOOP_G = np.random.default_rng(5).uniform(0.5, 3.0, (6, 7))
+_LOOP_B = np.random.default_rng(6).standard_normal((1, 6, 7)).astype(F32)
+
+
+def _run_cg_loop(pkg, k_stop, rn2_scale=F32(1.0), best=None, s=F32(1.0)):
+    """One package's _cg_state_init and _cg_loop on the same float32
+    operator and one-column B, Jacobi-preconditioned, tol 0 (never
+    converged): the state's rn2 times rn2_scale, its best replaced by
+    best if given, safe_bnorm s.  Returns (k, best, since, rn2)."""
+    if pkg == "jax":
+        A = jst.stencil_from_gmap(_LOOP_G, False, False)
+        B = jnp.asarray(_LOOP_B)
+        st = list(jst._cg_state_init(A, B))
+        assert st[6].dtype == jnp.float32 and F32(st[6]) == F32_MAX
+        st[8] = st[8] * rn2_scale
+        if best is not None:
+            st[6] = jnp.asarray(best, jnp.float32)
+        out = jst._cg_loop(A, B, tuple(st), jnp.asarray(0, jnp.float32),
+                           jnp.asarray([s]), k_stop, 1000)
+        return int(out[5]), F32(out[6]), int(out[7]), np.asarray(out[8])
+    A = tst._to_dtype(tst.stencil_from_gmap_device(
+        torch.as_tensor(_LOOP_G), False, False), torch.float32)
+    B = torch.as_tensor(_LOOP_B)
+    st = tst._cg_state_init(A, B)
+    assert type(st.best) is F32 and st.best == F32_MAX
+    st = st._replace(rn2=st.rn2 * float(rn2_scale),
+                     best=st.best if best is None else best)
+    out = tst._cg_loop(A, B, st, 0.0, torch.tensor([s]), k_stop, 1000)
+    return out.k, out.best, out.since, out.rn2.numpy()
+
+
+def _stall_edge(pkg):
+    """(best, safe_bnorm, worst) for which the package's first CG
+    iteration gives a worst equal to the float32 product best * 0.999
+    while the float64 product is larger: JAX's loop counts no
+    improvement there, a float64 comparison would count one.  The worst
+    is the float32 quotient the loop forms, sqrt(rn2) / safe_bnorm."""
+    rn = np.sqrt(_run_cg_loop(pkg, 1)[3][0])
+    s = F32(1.0)
+    for _ in range(256):
+        w = rn / s
+        b0 = F32(float(w) / 0.999)
+        for b in (b0, np.nextafter(b0, F32(0)), np.nextafter(b0, F32(np.inf))):
+            if b * F32(0.999) == w and float(b) * 0.999 > float(w):
+                return b, s, w
+        s = np.nextafter(s, F32(np.inf))
+    raise AssertionError("no stall edge within 256 steps of safe_bnorm")
+
+
+@pytest.mark.parametrize("case", ["inf_first_worst", "at_stall_threshold",
+                                  "above_stall_threshold"])
+def test_cg_loop_decides_as_jax(case):
+    """Both packages' _cg_state_init and _cg_loop, driven on the guards'
+    edge values, stop at the same k with the same since and best: a
+    first worst of inf (float32 best * 8 overflows, so JAX goes on), a
+    worst at the float32 stall threshold of best (not improved), and
+    the next best whose threshold lies above that worst (improved)."""
+    got = {}
+    for pkg in ("jax", "torch"):
+        if case == "inf_first_worst":
+            got[pkg] = _run_cg_loop(pkg, 2, rn2_scale=F32(np.inf))
+            continue
+        b, s, w = _stall_edge(pkg)
+        while case == "above_stall_threshold" and not w < b * F32(0.999):
+            b = np.nextafter(b, F32(np.inf))
+        got[pkg] = _run_cg_loop(pkg, 1, best=b, s=s)
+        assert got[pkg][1] == w
+    (kj, bj, sj, _), (kt, bt, st, _) = got["jax"], got["torch"]
+    assert (kt, st) == (kj, sj)
+    assert kj == {"inf_first_worst": 2}.get(case, 1)
+    assert sj == {"at_stall_threshold": 1}.get(case, 0)
+    assert type(bt) is F32
+    np.testing.assert_allclose(bt, bj, rtol=1e-5)
 
 
 def test_jacobi_cg_without_hierarchy():
