@@ -19,7 +19,10 @@ Phases (any failure exits non-zero; nothing is caught):
      it at B = 32 against its plain version (same tolerance) and time
      it beside its byte bound (and matvec's beside the sparse product,
      held against the plain version there too), one line per kernel
-     and level;
+     and level; and poly_project (torch glue, not a TPU kernel) with the
+     polygon job's projector at B = 32 on 1024^2: bit-identical on two
+     calls, within 1e-6 of max |ref| of a float64 CPU reference, timed
+     beside its byte bound;
   3. drive the main path: the bench.py job (seed 42, 1000 x 1000
      conductance raster with ~10% NODATA, 32 focal points, cg+amg,
      single precision, shortcut mode) through compute(..., "cuda"):
@@ -36,11 +39,25 @@ Phases (any failure exits non-zero; nothing is caught):
      launched, that the resistances agree with phase 3's shortcut
      matrix to 1e-4 relative, and that the cumulative map is finite,
      >= 0 on active cells and > 0 somewhere;
-  5. run 256 x 256 jobs of the same recipe on "cuda" and on "cpu": the
+  5. drive the polygon job: the bench job with 20 short-circuit polygons
+     (make_polygon_job; points 7 and 8 share one): one warm run, then
+     one timed run with the counters zeroed just before it; check the
+     resistances (finite, symmetric, >= 0, R[7,8] = 0, none above phase
+     3's and one at least 1e-3 below: shorts only lower resistance),
+     that matvec launched on the 1024^2 level each CG iteration and
+     matvec_pap never (the projected CG body), and print per_job lines;
+  6. drive the focal-region job: the bench raster with 8 focal regions
+     (5 x 5 blocks on points 1-8), 28 pairs in one chunk with a
+     per-column projector, maps off: one run; resistances finite,
+     symmetric, positive, none above phase 3's between the same points;
+  7. run 256 x 256 jobs of the same recipes on "cuda" and on "cpu": the
      shortcut job (resistances agree to 1e-5 relative) and an 8-point
      maps job with per-pair current and voltage maps and the max map
-     (the same files, every map within 1e-5 of max |cpu map|);
-  6. print the kernels line, the card line and, last, the result line.
+     (the same files, every map within 1e-5 of max |cpu map|); then the
+     polygon shortcut job, an 8-point polygon maps job and a 4-region
+     focal-region maps job, each also with the same CG iteration count
+     on both devices;
+  8. print the kernels line, the card line and, last, the result line.
 
 Exits 2 without printing a result when no CUDA device is available.
 """
@@ -174,14 +191,63 @@ def make_job(d, H, W, npoints=32, seed=42):
     return cfg, np.where(g > 0, g, 0.0)
 
 
-def check_resistances(r, label):
+def make_polygon_job(d, H, W, npoints=32, seed=42):
+    """The bench job plus short-circuit polygons: 20 squares, ids 1-20,
+    scaled to the grid (21 x 21 at 1000 x 1000): 1-6 centred on focal
+    points 1-6, 7 two 5 x 5 squares around points 7 and 8 (which merges
+    the two points into one node), 8-20 placed with default_rng(7) and
+    painted first.  Polygon cells keep their conductance, NODATA
+    included.  Returns (config dict, gmap, polygon map)."""
+    cfg, gmap = make_job(d, H, W, npoints, seed)
+    pts = np.load(cfg["point_file"])
+    big = max(1, round(10 * H / 1000))
+    small = max(1, round(2 * H / 1000))
+    poly = np.zeros((H, W))
+
+    def square(r, c, h, pid):
+        poly[max(r - h, 0):r + h + 1, max(c - h, 0):c + h + 1] = pid
+
+    prng = np.random.default_rng(7)
+    for pid in range(8, 21):
+        square(prng.integers(0, H), prng.integers(0, W), big, pid)
+    for pid in range(1, 7):
+        square(*np.argwhere(pts == pid)[0], big, pid)
+    for p in (7, 8):
+        square(*np.argwhere(pts == p)[0], small, 7)
+    path = os.path.join(d, "polygons.npy")
+    np.save(path, poly)
+    return dict(cfg, use_polygons="True", polygon_file=path), gmap, poly
+
+
+def make_regions_job(d, H, W, nregions, half=2, seed=42):
+    """The bench raster with nregions focal regions: (2 half + 1)^2
+    blocks centred on bench points 1..nregions, every cell made active
+    with |g| + 0.5 (as tests/test_regions_device.py builds its regions);
+    the point file holds the regions only.  Returns the config dict."""
+    cfg, _ = make_job(d, H, W, seed=seed)
+    g = np.load(cfg["habitat_file"])
+    pts = np.load(cfg["point_file"])
+    regions = np.zeros_like(pts)
+    for k in range(1, nregions + 1):
+        r, c = np.argwhere(pts == k)[0]
+        blk = np.s_[max(r - half, 0):r + half + 1, max(c - half, 0):c + half + 1]
+        g[blk] = np.abs(g[blk]) + 0.5
+        regions[blk] = k
+    np.save(cfg["habitat_file"], g)
+    np.save(cfg["point_file"], regions)
+    return cfg
+
+
+def check_resistances(r, label, n=32, merged=False):
+    """Finite, symmetric, n x n, positive off the diagonal (>= 0 when
+    polygons may merge two points into one node)."""
     m = r[1:, 1:]
     off = ~np.eye(m.shape[0], dtype=bool)
-    if m.shape != (32, 32) or not np.all(np.isfinite(m)):
-        raise AssertionError(f"{label}: resistances not finite 32x32")
-    if not np.all(m[off] > 0):
-        raise AssertionError(f"{label}: non-positive off-diagonal "
-                             f"resistance {m[off].min()}")
+    if m.shape != (n, n) or not np.all(np.isfinite(m)):
+        raise AssertionError(f"{label}: resistances not finite {n}x{n}")
+    if not np.all(m[off] >= 0 if merged else m[off] > 0):
+        raise AssertionError(f"{label}: off-diagonal resistance "
+                             f"{m[off].min()}")
     asym = np.abs(m - m.T).max() / np.abs(m).max()
     if asym > TOL:
         raise AssertionError(f"{label}: resistances not symmetric ({asym})")
@@ -374,10 +440,10 @@ def time_levels(gmap, dev, rate, rows):
     then timed beside its byte bound and, for matvec, the library sparse
     product on the same inputs.  Each time is the least of three runs of
     50 launches: on the small levels a run whose host falls behind the
-    spin kernel reads several times slow.  Returns {name: [(ms, bound
-    ms) per level]}."""
+    spin kernel reads several times slow.  Returns {name: {(H, W): (ms,
+    bound ms)}}."""
     rng = np.random.default_rng(11)
-    times = {name: [] for name, _ in LEVEL_KERNELS}
+    times = {name: {} for name, _ in LEVEL_KERNELS}
     for H, W in LEVELS:
         A, dinv, blocks = _inputs(gmap, MAIN_B, H, W, rng, dev)
         for name, levels in LEVEL_KERNELS:
@@ -389,7 +455,7 @@ def time_levels(gmap, dev, rate, rows):
                 name, kern, plain, f"level B={MAIN_B} {H}x{W}"))
             ms = min(cuda_ms(kern, n=50) for _ in range(3))
             bound = kernel_bytes(name, MAIN_B, H, W) / rate * 1e3
-            times[name].append((ms, bound))
+            times[name][(H, W)] = (ms, bound)
             lib = ""
             if name == "matvec":
                 call = _library_matvec(A, blocks[0])
@@ -401,23 +467,28 @@ def time_levels(gmap, dev, rate, rows):
     return times
 
 
-def note_per_job(level_times, launches):
-    """Each kernel's time per bench job: its level times, each times the
-    launches the job makes on that level, summed, beside the same sum of
-    its byte bounds.  A kernel launches equally often on each of its
-    levels (the smoother kernels and residual_restrict once per V-cycle
-    level, matvec_pap, cheb_step and matvec on one level), so the
-    phase-3 counter divided by its number of levels gives the launches
-    per level."""
+def note_per_job(level_times, launches_at, label=""):
+    """Each kernel's time per job: its time on each level shape (B = 32)
+    times the launches the job made there (cuda_stencil.LAUNCHES_AT of
+    the job's run), summed, beside the same sum of its byte bounds.
+    Fails on a launch at a shape phase 2 did not time."""
     for name, per_level in level_times.items():
-        n, rem = divmod(launches[name], len(per_level))
-        if rem:
-            raise AssertionError(f"{name}: {launches[name]} launches do not "
-                                 f"split evenly over {len(per_level)} levels")
-        ms = sum(t for t, _ in per_level) * n
-        bound = sum(b for _, b in per_level) * n
-        note(f"per_job {name}: {ms:.4f} ms over {launches[name]} launches "
-             f"({n} per level), byte bound {bound:.4f} ms, "
+        at = {(H, W): n for (k, H, W), n in launches_at.items() if k == name}
+        if set(at) - set(per_level):
+            raise AssertionError(f"{name} launched at untimed shapes "
+                                 f"{sorted(set(at) - set(per_level))}")
+        total = sum(at.values())
+        ms = sum(per_level[hw][0] * n for hw, n in at.items())
+        bound = sum(per_level[hw][1] * n for hw, n in at.items())
+        if not total:
+            note(f"per_job{label} {name}: not launched")
+            continue
+        counts = set(at.values())
+        split = (f"{counts.pop()} per level" if len(counts) == 1 else
+                 ", ".join(f"{n} at {H}x{W}" for (H, W), n in
+                           sorted(at.items(), reverse=True)))
+        note(f"per_job{label} {name}: {ms:.4f} ms over {total} launches "
+             f"({split}), byte bound {bound:.4f} ms, "
              f"{100 * bound / ms:.1f}% of bound")
 
 
@@ -438,6 +509,7 @@ def phase_main(cfg, rows):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         launches = dict(cs.LAUNCHES)
+        launches_at = dict(cs.LAUNCHES_AT)
         note(f"main path run {run}: {dt:.3f} s, launches {launches}")
         best = min(best, dt)
     check_resistances(r, "main path")
@@ -452,7 +524,7 @@ def phase_main(cfg, rows):
     if st.get("cg_iters") != CG_ITERS:
         raise AssertionError(f"main path: {st.get('cg_iters')} CG "
                              f"iterations, expected {CG_ITERS}")
-    return r
+    return r, launches_at
 
 
 def check_launched(launches, label):
@@ -460,6 +532,124 @@ def check_launched(launches, label):
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{label}")
+
+
+def phase_poly_project(gmap, poly, dev, rate):
+    """poly_project (torch glue, not a TPU kernel) with the polygon job's
+    shared projector on a 1024 x 1024, B = 32 float32 block: two calls
+    give the same bits, the result is within 1e-6 of max |ref| of a
+    float64 CPU reference, and its time (CUDA events) stands beside its
+    byte bound (the block read and written once)."""
+    from circuitscape_tpu_torch.graph.build import construct_node_map
+    from circuitscape_tpu_torch.solve.stencil import (build_poly_projector,
+                                                      poly_project)
+    nm = construct_node_map(gmap, poly)
+    proj = build_poly_projector(nm, MAIN_HW, dev)
+    ref_proj = build_poly_projector(nm, MAIN_HW, "cpu")
+    x = torch.as_tensor(np.random.default_rng(13).standard_normal(
+        (MAIN_B,) + MAIN_HW), dtype=torch.float32, device=dev)
+    a, b = poly_project(proj, x), poly_project(proj, x)
+    if not torch.equal(a, b):
+        raise AssertionError("poly_project: two calls on the same input "
+                             "differ")
+    ref = poly_project(ref_proj, x.double().cpu())
+    err = float((a.double().cpu() - ref).abs().max())
+    if not err <= 1e-6 * float(ref.abs().max()):
+        raise AssertionError(f"poly_project: max err {err} against the "
+                             f"float64 reference")
+    ms = cuda_ms(lambda: poly_project(proj, x))
+    bound = 2 * x.numel() * 4 / rate * 1e3
+    note(f"poly_project: {ms:.4f} ms, byte bound {bound:.4f} ms "
+         f"({100 * bound / ms:.1f}%), {proj.nseg - 1} polygons of "
+         f"{proj.cells.numel()} cells, max err {err:.3e}, bit-identical "
+         f"on two calls, at B={MAIN_B} {MAIN_HW}")
+
+
+def phase_polygons(cfg, r_plain, level_times):
+    """The polygon job at full width: warm run, then one timed run with
+    the launch counters zeroed just before it.  Resistances finite,
+    symmetric, >= 0; points 7 and 8 share a node (R = 0); no pair above
+    the bench job's (Rayleigh: shorts only lower resistance), one at
+    least 1e-3 below; matvec launched on the 1024^2 level every CG
+    iteration and matvec_pap never (the projected body)."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch import stats
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    from circuitscape_tpu_torch.timer import CSTIMER
+
+    cfg = dict(cfg, output_file=os.path.join(
+        os.path.dirname(cfg["output_file"]), "poly.out"))
+    cst.compute(cfg, device="cuda")
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    t = time.perf_counter()
+    r = cst.compute(cfg, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches, launches_at = dict(cs.LAUNCHES), dict(cs.LAUNCHES_AT)
+    st = stats.finalize()
+    sections = {"/".join(p[1:]): round(tot, 4)
+                for p, (_, tot) in sorted(CSTIMER._data.items())
+                if len(p) > 1}
+    note(f"polygon job run: {dt:.3f} s, cg_iters {st.get('cg_iters')}, "
+         f"launches {launches}, sections {sections}")
+    check_resistances(r, "polygon job", merged=True)
+    m, plain = r[1:, 1:], r_plain[1:, 1:]
+    if not m[6, 7] == m[7, 6] == 0:
+        raise AssertionError(f"polygon job: R[7,8] = {m[6, 7]}, expected 0 "
+                             "(one polygon holds both points)")
+    off = ~np.eye(32, dtype=bool)
+    ratio = m[off] / plain[off]
+    if not (np.all(ratio <= 1 + 1e-4) and np.any(ratio < 1 - 1e-3)):
+        raise AssertionError(f"polygon job: resistance / bench resistance "
+                             f"spans {ratio.min()}..{ratio.max()}")
+    fine = launches_at.get(("matvec", *MAIN_HW), 0)
+    if fine < st.get("cg_iters") or launches["matvec_pap"] != 0:
+        raise AssertionError(f"polygon job: matvec at {MAIN_HW} launched "
+                             f"{fine} times for {st.get('cg_iters')} CG "
+                             f"iterations, matvec_pap "
+                             f"{launches['matvec_pap']} times")
+    check_launched({k: n for k, n in launches.items() if k != "matvec_pap"},
+                   "polygon job")
+    note(f"polygon job: {dt:.3f} s, {st.get('cg_iters')} CG iterations, "
+         f"matvec at {MAIN_HW[0]}x{MAIN_HW[1]} {fine} launches, "
+         f"resistance / bench resistance {ratio.min():.4f}..{ratio.max():.6f}")
+    note_per_job(level_times, launches_at, " polygon job")
+
+
+def phase_regions(cfg, r_plain, nregions=8):
+    """The focal-region job at full width, maps off: one run.  Its 28
+    pairs solve in one chunk with a per-column projector; resistances
+    finite, symmetric, positive, each no higher than the bench job's
+    between the same two points (regions only merge and add
+    conductance)."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch import stats
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    from circuitscape_tpu_torch.timer import CSTIMER
+
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    t = time.perf_counter()
+    r = cst.compute(cfg, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    st = stats.finalize()
+    sections = {"/".join(p[1:]): round(tot, 4)
+                for p, (_, tot) in sorted(CSTIMER._data.items())
+                if len(p) > 1}
+    note(f"focal-region job run: {dt:.3f} s, cg_iters {st.get('cg_iters')}, "
+         f"launches {dict(cs.LAUNCHES)}, sections {sections}")
+    check_resistances(r, "focal-region job", n=nregions)
+    m, plain = r[1:, 1:], r_plain[1:nregions + 1, 1:nregions + 1]
+    off = ~np.eye(nregions, dtype=bool)
+    ratio = m[off] / plain[off]
+    if not np.all(ratio <= 1 + 1e-4):
+        raise AssertionError(f"focal-region job: resistance above the "
+                             f"bench job's, ratio {ratio.max()}")
+    note(f"focal-region job: {dt:.3f} s, {st.get('cg_iters')} CG "
+         f"iterations, resistance / bench resistance "
+         f"{ratio.min():.4f}..{ratio.max():.4f}")
 
 
 def read_asc(path):
@@ -557,12 +747,69 @@ def phase_agree(d):
     note(f"256x256 maps job: {len(files['cpu'])} maps, cuda and cpu agree "
          f"to {worst:.3e} of max |map|")
 
+    pd = os.path.join(d, "poly")
+    os.makedirs(pd)
+    cfg, _, _ = make_polygon_job(pd, 256, 256)
+    agree_jobs(pd, "256x256 polygon job", cfg, 32)
+    pd = os.path.join(d, "poly_maps")
+    os.makedirs(pd)
+    cfg, _, _ = make_polygon_job(pd, 256, 256, npoints=8)
+    agree_jobs(pd, "256x256 polygon maps job", dict(
+        cfg, write_cur_maps="True", write_volt_maps="True",
+        write_max_cur_maps="True"), 8, nmaps=2 * 27 + 2)
+    pd = os.path.join(d, "regions")
+    os.makedirs(pd)
+    cfg = make_regions_job(pd, 256, 256, 4)
+    agree_jobs(pd, "256x256 focal-region maps job", dict(
+        cfg, write_cur_maps="True", write_volt_maps="True",
+        write_max_cur_maps="True"), 4, nmaps=2 * 6 + 2)
+
+
+def agree_jobs(d, label, cfg, n, nmaps=0):
+    """One job on "cuda" and on "cpu" (outputs in d/cuda, d/cpu):
+    resistances to 1e-5 relative (0 where the cpu has 0), the same CG
+    iteration count, the same nmaps maps written, each within 1e-5 of
+    max |cpu map|."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch import stats
+    r, iters, files = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        od = os.path.join(d, dev)
+        os.makedirs(od)
+        r[dev] = cst.compute(dict(cfg, output_file=os.path.join(
+            od, "job.out")), device=dev)
+        iters[dev] = stats.finalize().get("cg_iters")
+        files[dev] = sorted(f for f in os.listdir(od) if f.endswith(".asc"))
+    check_resistances(r["cuda"], f"{label} cuda", n=n, merged=True)
+    off = ~np.eye(n, dtype=bool)
+    a, b = r["cuda"][1:, 1:][off], r["cpu"][1:, 1:][off]
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+    if not (rel <= TOL and iters["cuda"] == iters["cpu"]):
+        raise AssertionError(f"{label}: cuda and cpu resistances differ by "
+                             f"{rel} relative; CG iterations {iters}")
+    if files["cuda"] != files["cpu"] or len(files["cpu"]) != nmaps:
+        raise AssertionError(f"{label}: cuda wrote {files['cuda']}, cpu "
+                             f"{files['cpu']}")
+    worst = 0.0
+    for f in files["cpu"]:
+        g = read_asc(os.path.join(d, "cuda", f))
+        c = read_asc(os.path.join(d, "cpu", f))
+        err = float(np.abs(g - c).max()) / float(np.abs(c).max())
+        if not err <= TOL:
+            raise AssertionError(f"{label}: {f} differs by {err} of max "
+                                 "|cpu map|")
+        worst = max(worst, err)
+    note(f"{label}: cuda and cpu resistances agree to {rel:.3e} relative, "
+         f"{iters['cuda']} CG iterations on both, {nmaps} maps agree to "
+         f"{worst:.3e} of max |map|")
+
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     import circuitscape_tpu_torch  # noqa: F401  (fails outside the repo)
+    from circuitscape_tpu_torch import stats
 
     dev = torch.device("cuda", torch.cuda.current_device())
     dev_name = torch.cuda.get_device_name(dev)
@@ -575,11 +822,21 @@ def main():
     d = tempfile.mkdtemp(dir=scratch)
     try:
         cfg, gmap = make_job(d, 1000, 1000)
+        pd = tempfile.mkdtemp(dir=d)
+        poly_cfg, _, poly = make_polygon_job(pd, 1000, 1000)
         rows, level_times = phase_kernels(gmap, dev, dev_name)
-        r = phase_main(cfg, rows)
-        note_per_job(level_times, {k: row["launches"]
-                                   for k, row in rows.items()})
+        rate = stats.device_bytes_per_s(dev_name)
+        # the polygon job runs matvec on the fine level, timed by phase 2
+        level_times["matvec"][MAIN_HW] = (
+            rows["matvec"]["ms"],
+            kernel_bytes("matvec", MAIN_B, *MAIN_HW) / rate * 1e3)
+        phase_poly_project(gmap, poly, dev, rate)
+        r, launches_at = phase_main(cfg, rows)
+        note_per_job(level_times, launches_at)
         phase_maps(cfg, gmap, r)
+        phase_polygons(poly_cfg, r, level_times)
+        phase_regions(make_regions_job(tempfile.mkdtemp(dir=d), 1000, 1000,
+                                       8), r)
         phase_agree(tempfile.mkdtemp(dir=d))
     finally:
         shutil.rmtree(d, ignore_errors=True)

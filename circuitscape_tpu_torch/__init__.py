@@ -6,9 +6,10 @@ work is PyTorch; the stencil kernels of the preconditioned CG solve are
 hand-written CUDA C++ (csrc/, built with nvcc on first use).  It imports
 neither JAX nor the circuitscape_tpu package.
 
-This package carries raster pairwise in shortcut mode (no maps, no
-polygons, solver = cg+amg); other scenarios raise NotImplementedError
-naming their ROADMAP item.
+This package carries raster pairwise with solver = cg+amg: shortcut
+mode, current and voltage maps, exclude pairs, short-circuit polygons
+and focal regions; other scenarios raise NotImplementedError naming
+their ROADMAP item.
 
 Public API mirrors the reference:
     compute(path_or_dict, device=None) -> run a job from an INI file or

@@ -5,7 +5,8 @@ Parity reference: src/core.jl:64-739 (single_ground_all_pairs, shortcut
 optimization, get_num_pairs, voltmatrix bookkeeping).
 
 The reference schedules one linear solve per focal pair; here a raster
-without polygons is exactly a stencil.  In shortcut mode the N-1 anchor
+is a stencil, and its short-circuit polygons a projector on it
+(solve/stencil.py PolyProjector).  In shortcut mode the N-1 anchor
 pairs of every connected component solve as one batched device solve
 (_stencil_shortcut_solve), and the full matrix is rebuilt with the
 voltage-ratio shortcut.  Jobs that write maps or exclude pairs turn the
@@ -214,6 +215,18 @@ def _save_padded(resistances, orig_pts, cfg):
 _shortcut_chunk_cap = 4096
 
 
+def _polygon_projector(prob, S64):
+    """The polygon (short-circuit region) collapse of a job with a
+    polygon map, as the projector on the padded operator's grid; None
+    without one, or when no polygon merges two active cells."""
+    from ..solve.stencil import build_poly_projector
+    if not prob.polymap.size:
+        return None
+    with CSTIMER("build polygon projector"):
+        return build_poly_projector(prob.nodemap, S64.shape,
+                                    S64.diag.device)
+
+
 def _stencil_shortcut_solve(prob, flags, resistances, voltmatrix,
                             shortcut_res, device, ckpt=None,
                             done_pairs=None, max_par=0):
@@ -240,6 +253,7 @@ def _stencil_shortcut_solve(prob, flags, resistances, voltmatrix,
     with CSTIMER("prepare stencil solver (upload + MG setup)"):
         S64, prec, prec_apply, _ = prepare_stencil_solver_from_gmap(
             prob.cellmap, flags.avg_res, flags.four_neighbors, device)
+    proj = _polygon_projector(prob, S64)
 
     # invert the nodemap once: node id -> grid cell
     with CSTIMER("invert nodemap"):
@@ -300,7 +314,7 @@ def _stencil_shortcut_solve(prob, flags, resistances, voltmatrix,
                     X, relres, iters = stencil_solve_pairs(
                         S64, src_cells, dst_cells, rtol=consts.CG_RTOL,
                         itmax=consts.CG_ITMAX, prec=prec,
-                        prec_apply=prec_apply)
+                        prec_apply=prec_apply, proj=proj)
                 except torch.cuda.OutOfMemoryError as e:
                     reraise_if_device_oom(e, S64.shape[0] * S64.shape[1],
                                           bsz)
@@ -438,6 +452,7 @@ def _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
             prob.cellmap, flags.avg_res, flags.four_neighbors, device)
     Hp, Wp = S64.shape       # bucketed up from (H, W); maps crop back
     dev = S64.diag.device
+    proj = _polygon_projector(prob, S64)
 
     rr, cc_ = np.nonzero(nodemap)
     node_cell = np.zeros((int(nodemap.max()) + 1, 2), np.int64)
@@ -468,7 +483,12 @@ def _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
     # float32 node currents besides the solve's own blocks; chunks cap
     # at 32 so that one chunk's output overlaps the next one's solve
     per_col = H * W * 8 * 9
-    budget = solve_chunk_budget(H * W, dev)
+    # CS_MAPS_CHUNK_BYTES overrides the maps path's budget; it falls
+    # back to CS_SHORTCUT_CHUNK_BYTES, then to the device's free memory
+    budget = solve_chunk_budget(
+        H * W, dev, env_var=("CS_MAPS_CHUNK_BYTES"
+                             if os.environ.get("CS_MAPS_CHUNK_BYTES")
+                             else "CS_SHORTCUT_CHUNK_BYTES"))
     step = max(1, min(32, budget // max(per_col, 1)))
     if getattr(cfg, "max_parallel", 0) > 0:
         step = min(step, cfg.max_parallel)
@@ -527,7 +547,7 @@ def _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
                     X, rel, iters = stencil_solve_pairs(
                         S64, src_cells, dst_cells, rtol=consts.CG_RTOL,
                         itmax=consts.CG_ITMAX, prec=prec,
-                        prec_apply=prec_apply)
+                        prec_apply=prec_apply, proj=proj)
                 except torch.cuda.OutOfMemoryError as e:
                     reraise_if_device_oom(e, Hp * Wp, bsz)
                 stats.record_solve(tuple(X.shape), iters,
@@ -552,7 +572,7 @@ def _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
             copies = {}
             if need_cur:
                 with CSTIMER("node currents + reduce"):
-                    ncur = stencil_node_currents(S64, Xb,
+                    ncur = stencil_node_currents(S64, Xb, proj=proj,
                                                  out_dtype=torch.float32)
                     if of.log_transform_maps:
                         ncur = torch.where(ncur > 0, torch.log10(ncur),

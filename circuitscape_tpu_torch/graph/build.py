@@ -4,16 +4,17 @@ Laplacian.
 Parity reference: src/raster/pairwise.jl:271-362 (construct_node_map,
 relabel!, construct_graph), src/core.jl:608-634 (laplacian!).
 
-Counterpart of circuitscape_tpu/graph/build.py; create_new_polymap (the
-per-pair focal-region map) comes with focal regions (ROADMAP queue 1
-item 7), components with the general-graph tier (item 9).
+Counterpart of circuitscape_tpu/graph/build.py, with create_new_polymap
+(the per-pair focal-region map, src/raster/pairwise.jl:369-442) and
+components (src/core.jl connected components).
 
 Design notes: the raster-to-graph step is a stencil, so edge assembly is
 done with whole-array shifted-plane operations (4 directed neighbor
 planes), not per-cell pushes.  The resulting COO triples feed a scipy
-CSR on the host; the port's solve path never needs it (the stencil
+CSR on the host.  A job without polygons never needs it (the stencil
 planes build on the device, solve/stencil.py), so LazyStencilGraph only
-materializes it on demand.
+materializes it on demand; with a polygon map its components come from
+this CSR, since a polygon can join two grid islands.
 
 Conventions: node maps use 0 = "no node" and 1-based node ids numbered in
 column-major order, exactly like the reference, so unit tests and output
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+from scipy.sparse.csgraph import connected_components as _cc
 
 
 # Edge-weight rules (src/raster/pairwise.jl:364-367)
@@ -145,3 +147,67 @@ def laplacian(a: sp.spmatrix) -> sp.csr_matrix:
     s = np.asarray(offdiag.sum(axis=0)).ravel()
     L = sp.diags(s) - offdiag
     return L.tocsr()
+
+
+def components(a: sp.spmatrix):
+    """Connected components as sorted 1-based node-id arrays, ordered by
+    smallest member (matches Graphs.jl connected_components), grouped
+    with one argsort over the labels."""
+    n = a.shape[0]
+    ncomp, labels = _cc(a, directed=False)
+    if ncomp == 0:
+        return []
+    first = np.full(ncomp, n, np.int64)
+    np.minimum.at(first, labels, np.arange(n, dtype=np.int64))
+    rank = np.empty(ncomp, np.int64)
+    rank[np.argsort(first, kind="stable")] = np.arange(ncomp)
+    r = rank[labels]
+    order = np.argsort(r, kind="stable").astype(np.int64) + 1
+    counts = np.bincount(r, minlength=ncomp)
+    return np.split(order, np.cumsum(counts)[:-1])
+
+
+def create_new_polymap(gmap: np.ndarray, polymap: np.ndarray, points_rc,
+                       pt1=0, pt2=0) -> np.ndarray:
+    """Merge the focal regions pt1 and pt2 into the polygon map
+    (src/raster/pairwise.jl:369-442, the pairwise form: a region of
+    several cells becomes one polygon, joined with any polygon it
+    overlaps)."""
+    rows, cols, pts = points_rc
+
+    def cell(x):
+        return (int(rows[x]) - 1, int(cols[x]) - 1)
+
+    if polymap.size == 0:
+        newpoly = np.zeros(gmap.shape, np.int64)
+        for x in np.nonzero(pts == pt1)[0]:
+            newpoly[cell(x)] = pt1
+        for x in np.nonzero(pts == pt2)[0]:
+            newpoly[cell(x)] = pt2
+        return newpoly
+
+    newpoly = polymap.copy()
+    k = polymap.max()
+    for p in (pt1, pt2):
+        idx = np.nonzero(pts == p)[0]
+        if len(idx) == 1:
+            continue
+        poly_at = [polymap[cell(x)] for x in idx]
+        if all(v == 0 for v in poly_at):
+            for x in idx:
+                newpoly[cell(x)] = k + 1
+            k += 1
+        else:
+            nz = [x for x in idx if polymap[cell(x)] != 0]
+            if len(nz) == 1:
+                # reference intent (src/raster/pairwise.jl:428-430): collapse
+                # all cells of this point onto the one existing polygon id
+                target = polymap[cell(nz[0])]
+                for x in idx:
+                    newpoly[cell(x)] = target
+            else:
+                vals = {polymap[cell(x)] for x in nz}
+                overlap = np.isin(polymap, list(vals))
+                newpoly[overlap] = k + 1
+                k += 1
+    return newpoly

@@ -58,7 +58,8 @@ spread over blocks instead of walked 32 deep by each thread.
 Each wrapper takes CPU tensors to its plain-torch version (the tests run
 there) and CUDA tensors to its kernel; on a CUDA tensor it launches the
 kernel or raises, never falls back.  LAUNCHES counts kernel launches per
-wrapper (plain calls do not count).
+wrapper, LAUNCHES_AT per wrapper and (H, W) of the grid (plain calls do
+not count).
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -80,10 +82,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# launches per wrapper, for showing that a run went through the kernels
+# launches per wrapper, for showing that a run went through the kernels,
+# and per (wrapper, H, W) of the launch's grid
 LAUNCHES = {"matvec": 0, "matvec_pap": 0, "cheb_step": 0,
             "residual_restrict": 0, "cheb_init": 0, "residual_init": 0,
             "cheb_finish": 0}
+LAUNCHES_AT = Counter()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -108,6 +112,12 @@ _SIGNATURES = {
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_AT.clear()
+
+
+def _launched(name: str, H: int, W: int):
+    LAUNCHES[name] += 1
+    LAUNCHES_AT[(name, H, W)] += 1
 
 
 def _nvcc() -> str:
@@ -289,7 +299,7 @@ def matvec(A: StencilOperator, x: torch.Tensor) -> torch.Tensor:
     B, H, W = x.shape
     _raise_if(lib.cs_matvec(*map(_ptr, A.planes), _ptr(x), _ptr(y),
                             B, H, W, _stream(x.device)), "matvec")
-    LAUNCHES["matvec"] += 1
+    _launched("matvec", H, W)
     return y
 
 
@@ -311,7 +321,7 @@ def matvec_pap(A: StencilOperator, x: torch.Tensor):
     _raise_if(lib.cs_matvec_pap(*map(_ptr, A.planes), _ptr(x), _ptr(y),
                                 _ptr(part), B, H, W, _stream(x.device)),
               "matvec_pap")
-    LAUNCHES["matvec_pap"] += 1
+    _launched("matvec_pap", H, W)
     return y, part.sum(dim=1)
 
 
@@ -332,7 +342,7 @@ def cheb_step(A: StencilOperator, dinv: torch.Tensor, r, d, x, ca: float,
                                _ptr(xo), ca, cb, B, H, W,
                                _stream(r.device)),
               "cheb_step")
-    LAUNCHES["cheb_step"] += 1
+    _launched("cheb_step", H, W)
     return ro, do, xo
 
 
@@ -354,7 +364,7 @@ def residual_restrict(A: StencilOperator, b: torch.Tensor, x: torch.Tensor):
                                        _ptr(x), _ptr(rc), B, H, W,
                                        _stream(x.device)),
               "residual_restrict")
-    LAUNCHES["residual_restrict"] += 1
+    _launched("residual_restrict", H, W)
     return rc
 
 
@@ -373,7 +383,7 @@ def cheb_init(A: StencilOperator, dinv: torch.Tensor, b: torch.Tensor,
     _raise_if(lib.cs_cheb_init(*map(_ptr, A.planes), _ptr(dinv), _ptr(b),
                                _ptr(x), c, ca, cb, B, H, W,
                                _stream(b.device)), "cheb_init")
-    LAUNCHES["cheb_init"] += 1
+    _launched("cheb_init", H, W)
     return x
 
 
@@ -393,7 +403,7 @@ def residual_init(A: StencilOperator, dinv: torch.Tensor, b: torch.Tensor,
                                    _ptr(b), _ptr(x), _ptr(r0), _ptr(x1), c,
                                    B, H, W, _stream(x.device)),
               "residual_init")
-    LAUNCHES["residual_init"] += 1
+    _launched("residual_init", H, W)
     return r0, x1
 
 
@@ -414,5 +424,5 @@ def cheb_finish(A: StencilOperator, dinv: torch.Tensor, r0: torch.Tensor,
     _raise_if(lib.cs_cheb_finish(*map(_ptr, A.planes), _ptr(dinv), _ptr(r0),
                                  _ptr(x1), _ptr(x2), c, ca, cb, B, H, W,
                                  _stream(r0.device)), "cheb_finish")
-    LAUNCHES["cheb_finish"] += 1
+    _launched("cheb_finish", H, W)
     return x2

@@ -10,6 +10,11 @@ All components of the grid solve simultaneously: the operator is
 block-diagonal across components, and CG iterates stay inside the
 component their right-hand side lives in.
 
+Short-circuit regions (polygons, and the focal regions a pair merges)
+are applied as the projector PolyProjector onto polygon-constant
+fields: CG then runs the operator Pi L Pi, which solves the collapsed
+system exactly while the matvec stays the grid kernel.
+
 Precision follows the JAX package, which runs with x64 enabled: the
 planes, right-hand sides and refinement residuals are float64; the
 inner CG passes run in float32 on the hierarchy's fine operator, whose
@@ -66,6 +71,179 @@ def operator_from_numpy(planes, dtype=torch.float32,
     return StencilOperator(*(torch.as_tensor(np.array(p),
                                              dtype=dtype, device=device)
                              for p in planes))
+
+
+@dataclass
+class PolyProjector:
+    """Polygon (short-circuit region) collapse for the stencil solve.
+
+    The reference merges polygon cells into one graph node before
+    building the Laplacian (src/raster/pairwise.jl:283-314); the stencil
+    cannot express merged nodes, so the collapse is applied as the
+    orthogonal projector Pi = P (P^T P)^-1 P^T onto polygon-constant
+    fields (P = cell -> merged-node incidence).  CG with Pi L Pi on
+    range(Pi) solves the collapsed system P^T L P v = P^T b exactly.
+
+    seg maps each cell to its polygon (0 .. nseg-2) or to the trash slot
+    nseg-1, whose inv_count is 0: shape (H*W,) for one merge pattern
+    shared by every column, (B, H*W) for one pattern per column.  The
+    sums run over the polygon cells only, never over the trash slot:
+    `cells` lists them sorted by polygon (for a per-column seg, as flat
+    indices into the (B*H*W,) block), `cell_seg` gives each one's
+    polygon (per-column: row * (nseg-1) + polygon), and `lengths` counts
+    the cells of every polygon (of every row), zeros included.  A sum is
+    then one sorted-segment reduction with no atomics, the same bits on
+    every call."""
+
+    seg: torch.Tensor          # (H*W,) or (B, H*W) int32
+    inv_counts: torch.Tensor   # (nseg,) or (B, nseg) float64; trash = 0
+    nseg: int
+    cells: torch.Tensor        # (P,) int64
+    cell_seg: torch.Tensor     # (P,) int64
+    lengths: torch.Tensor      # (nseg-1,) or (B*(nseg-1),) int64
+
+
+def projector_from_numpy(seg, inv_counts, nseg: int,
+                         device="cpu") -> PolyProjector:
+    """PolyProjector from host seg / inv_counts / nseg (the JAX
+    package's PolyProjector fields), with the polygon cells sorted by
+    polygon for the segment reductions."""
+    seg = np.asarray(seg)
+    rows = seg.reshape(-1, seg.shape[-1])
+    npoly = nseg - 1
+    r, c = np.nonzero(rows < npoly)
+    gid = r.astype(np.int64) * npoly + rows[r, c]
+    order = np.argsort(gid, kind="stable")
+
+    def dev(a, dtype):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    return PolyProjector(
+        dev(seg, torch.int32), dev(inv_counts, torch.float64), int(nseg),
+        dev((r.astype(np.int64) * rows.shape[1] + c)[order], torch.int64),
+        dev(gid[order], torch.int64),
+        dev(np.bincount(gid, minlength=rows.shape[0] * npoly), torch.int64))
+
+
+def _poly_ids(nodemap: np.ndarray, shape):
+    """The ids shared by more than one cell of nodemap (its polygons),
+    their cell counts, and nodemap zero-padded to shape."""
+    active = nodemap > 0
+    ids, counts = np.unique(nodemap[active], return_counts=True)
+    H, W = nodemap.shape
+    full = np.zeros(shape, nodemap.dtype)
+    full[:H, :W] = nodemap
+    return ids[counts > 1], counts[counts > 1], full.ravel()
+
+
+def _poly_seg(shared, flat, trash):
+    """Polygon index of each cell of flat (position in shared), trash
+    elsewhere."""
+    npoly = shared.size
+    if npoly == 0:
+        return np.full(flat.shape, trash, np.int32)
+    pos = np.clip(np.searchsorted(shared, flat), 0, npoly - 1)
+    is_poly = (shared[pos] == flat) & (flat > 0)
+    return np.where(is_poly, pos, trash).astype(np.int32)
+
+
+def build_poly_projector(nodemap: np.ndarray, shape=None, device="cpu"):
+    """PolyProjector from a nodemap whose merged (polygon) nodes cover
+    more than one cell; None when it has none.  shape: the padded (H, W)
+    of the device operator; padded cells map to the trash slot."""
+    shared, counts, flat = _poly_ids(
+        nodemap, nodemap.shape if shape is None else shape)
+    if shared.size == 0:
+        return None
+    npoly = shared.size
+    inv_counts = np.concatenate([1.0 / counts, np.zeros(1)])
+    return projector_from_numpy(_poly_seg(shared, flat, npoly), inv_counts,
+                                npoly + 1, device)
+
+
+def build_poly_projector_rows(nodemaps, shape, device="cpu"):
+    """Batched PolyProjector from one nodemap per column (focal-regions
+    pairwise: each pair merges its own focal regions).  All rows share
+    one segment budget nseg = max polygon count + the trash slot."""
+    per = [_poly_ids(nm, shape) for nm in nodemaps]
+    nseg = max(s.size for s, _, _ in per) + 1 if per else 1
+    segs, invs = [], []
+    for shared, counts, flat in per:
+        inv = np.zeros(nseg, np.float64)
+        inv[:shared.size] = 1.0 / counts
+        segs.append(_poly_seg(shared, flat, nseg - 1))
+        invs.append(inv)
+    return projector_from_numpy(np.stack(segs), np.stack(invs), nseg, device)
+
+
+def _pad_projector_rows(proj: PolyProjector, b_pad: int) -> PolyProjector:
+    """A per-column projector extended with all-trash rows to b_pad
+    columns (inv_counts 0), so padded columns pass through unchanged;
+    the polygon cells of the first rows keep their flat indices."""
+    extra = b_pad - proj.seg.shape[0]
+    if proj.seg.dim() == 1 or extra <= 0:
+        return proj
+    seg = torch.cat([proj.seg, torch.full((extra, proj.seg.shape[1]),
+                                          proj.nseg - 1,
+                                          dtype=proj.seg.dtype,
+                                          device=proj.seg.device)])
+    inv = torch.cat([proj.inv_counts,
+                     proj.inv_counts.new_zeros((extra, proj.nseg))])
+    lengths = torch.cat([proj.lengths,
+                         proj.lengths.new_zeros(extra * (proj.nseg - 1))])
+    return PolyProjector(seg, inv, proj.nseg, proj.cells, proj.cell_seg,
+                         lengths)
+
+
+def _poly_sums(proj: PolyProjector, flat: torch.Tensor) -> torch.Tensor:
+    """Per-column polygon sums (B, nseg-1) of flat (B, H*W), in its
+    dtype: one sorted-segment reduction over the polygon cells.  The
+    lengths come from projector_from_numpy and sum to the cell count, so
+    segment_reduce's checks (a device-to-host sync on CUDA) are
+    skipped."""
+    B = flat.shape[0]
+    if proj.seg.dim() == 1:
+        vals = flat[:, proj.cells].t()            # (P, B)
+        return torch.segment_reduce(vals, "sum", lengths=proj.lengths,
+                                    axis=0, unsafe=True).t()
+    vals = flat.reshape(-1)[proj.cells]
+    return torch.segment_reduce(vals, "sum", lengths=proj.lengths,
+                                unsafe=True).view(B, -1)
+
+
+def _poly_write(proj: PolyProjector, flat: torch.Tensor,
+                per_poly: torch.Tensor) -> torch.Tensor:
+    """flat with every polygon cell set to its polygon's per_poly
+    value (B, nseg-1); the other cells pass through."""
+    out = flat.clone()
+    if proj.seg.dim() == 1:
+        out[:, proj.cells] = per_poly[:, proj.cell_seg]
+    else:
+        out.view(-1)[proj.cells] = per_poly.reshape(-1)[proj.cell_seg]
+    return out
+
+
+def poly_project(proj: PolyProjector, y: torch.Tensor) -> torch.Tensor:
+    """Apply Pi to a (B, H, W) block: polygon cells take their polygon
+    mean, all other cells pass through.  Works in y's dtype; inv_counts
+    is cast to it before the multiply, as in the JAX package."""
+    if proj.nseg == 1:
+        return y
+    B, H, W = y.shape
+    flat = y.reshape(B, H * W)
+    inv = proj.inv_counts[..., :-1].to(y.dtype)
+    means = _poly_sums(proj, flat) * inv
+    return _poly_write(proj, flat, means).view(B, H, W)
+
+
+def poly_sum(proj: PolyProjector, y: torch.Tensor) -> torch.Tensor:
+    """Polygon cells take their polygon sum (broadcast to members); all
+    other cells pass through.  Used for merged-node current maps."""
+    if proj.nseg == 1:
+        return y
+    B, H, W = y.shape
+    flat = y.reshape(B, H * W)
+    return _poly_write(proj, flat, _poly_sums(proj, flat)).view(B, H, W)
 
 
 def stencil_activity_stats(gmap: np.ndarray, four_neighbors: bool) -> int:
@@ -186,12 +364,8 @@ def stencil_node_currents(A: StencilOperator, V: torch.Tensor,
     The cutoff max is taken per column over the whole grid.  Flow planes
     are recomputed in the accumulation pass rather than kept from the
     threshold pass (fewer live blocks); out_dtype=float32 casts V first,
-    as the maps-on path does.  Polygon jobs (proj) are not carried yet
-    (ROADMAP queue 1 item 7)."""
-    if proj is not None:
-        raise NotImplementedError(
-            "polygon node currents are not carried by circuitscape_tpu_torch "
-            "yet (ROADMAP queue 1 item 7)")
+    as the maps-on path does.  With a projector, a merged node's current
+    is its total in/outflow, broadcast to its cells (poly_sum)."""
     if out_dtype is not None and V.dtype != out_dtype:
         V = V.to(out_dtype)
     dirs = [(0, 1, A.we),                           # E
@@ -218,19 +392,43 @@ def stencil_node_currents(A: StencilOperator, V: torch.Tensor,
         f = torch.where(torch.abs(f) < thr, 0.0, f)
         inflow = inflow + torch.clamp_min(f, 0.0)
         outflow = outflow + torch.clamp_min(-f, 0.0)
+    if proj is not None:
+        # internal polygon edges carry no flow (equal voltages), so the
+        # sum of the member cells' flows is the merged node's
+        inflow = poly_sum(proj, inflow)
+        outflow = poly_sum(proj, outflow)
     return torch.maximum(inflow, outflow)
 
 
-def _make_prec_apply(A, prec, prec_apply):
+def _apply_op(A: StencilOperator, x: torch.Tensor, proj=None):
+    """L x, projected when a polygon projector is given (x lies in
+    range(Pi), so projecting the output keeps the iteration on the
+    collapsed system).  A float32 block goes through the matvec kernel,
+    a float64 one (the refinement residuals) through stencil_matvec."""
+    from .cuda_stencil import matvec
+    y = matvec(A, x) if x.dtype == torch.float32 else stencil_matvec(A, x)
+    return y if proj is None else poly_project(proj, y)
+
+
+def _make_prec_apply(A, prec, prec_apply, proj=None):
     """Preconditioner application shared by the CG init and loop (they
     must apply the IDENTICAL operator for CG to be valid); Jacobi when
-    no hierarchy is given."""
+    no hierarchy is given.  Under a projector it is Pi M Pi, SPD on
+    range(Pi) (inputs already lie there, so only the output is
+    projected)."""
     if prec_apply is None:
         inv_diag = torch.where(A.diag > 0,
                                1.0 / torch.where(A.diag == 0, 1.0, A.diag),
                                1.0)
-        return lambda r: inv_diag[None] * r
-    return lambda r: prec_apply(prec, r)
+
+        def base(r):
+            return inv_diag[None] * r
+    else:
+        def base(r):
+            return prec_apply(prec, r)
+    if proj is None:
+        return base
+    return lambda r: poly_project(proj, base(r))
 
 
 def _colsum(a: torch.Tensor) -> torch.Tensor:
@@ -270,8 +468,8 @@ def _cg_improved(worst: np.floating, best: np.floating) -> bool:
 
 
 def _cg_state_init(A: StencilOperator, B: torch.Tensor, prec=None,
-                   prec_apply=None) -> CGState:
-    Z = _make_prec_apply(A, prec, prec_apply)(B)
+                   prec_apply=None, proj=None) -> CGState:
+    Z = _make_prec_apply(A, prec, prec_apply, proj)(B)
     R = B
     ftype = {torch.float32: np.float32, torch.float64: np.float64}[B.dtype]
     # rn2 (per-column ||R||^2) rides the state so neither the loop
@@ -282,7 +480,7 @@ def _cg_state_init(A: StencilOperator, B: torch.Tensor, prec=None,
 
 def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
              safe_bnorm, k_stop: int, itmax: int, prec=None,
-             prec_apply=None) -> CGState:
+             prec_apply=None, proj=None) -> CGState:
     """Preconditioned CG until convergence, stall, itmax, or k_stop (the
     per-call step budget of the chunked driver).
 
@@ -294,10 +492,12 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
     re-residualize.  Both guards compare in B's float type, as the JAX
     loop does (_cg_bounded, _cg_improved).  The matvec + p.Ap of the
     body is one kernel (cuda_stencil.matvec_pap), as is the
-    true-residual replacement every 64 iterations (cuda_stencil.matvec)."""
-    from .cuda_stencil import matvec, matvec_pap
+    true-residual replacement every 64 iterations (cuda_stencil.matvec).
+    Under a projector the body is the composite Pi L p (the matvec
+    kernel, then poly_project) and a column dot, as in the JAX loop."""
+    from .cuda_stencil import matvec_pap
 
-    apply_M = _make_prec_apply(A, prec, prec_apply)
+    apply_M = _make_prec_apply(A, prec, prec_apply, proj)
     X, R, Z, P, rz, k, best, since, rn2 = state
     ftype = type(best)
 
@@ -312,7 +512,11 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
     worst, active = stop_quantities(rn2)
     while (k < itmax and k < k_stop and since < 50 and
            _cg_bounded(worst, best) and active):
-        AP, pAp = matvec_pap(A, P)
+        if proj is None:
+            AP, pAp = matvec_pap(A, P)
+        else:
+            AP = _apply_op(A, P, proj)
+            pAp = _colsum(P * AP)
         alpha = torch.where(pAp > 0, rz / torch.where(pAp == 0, 1.0, pAp),
                             0.0)
         X = X + alpha[:, None, None] * P
@@ -320,7 +524,7 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
             # periodic residual replacement: recompute the true residual
             # so the f32 recurrence cannot drift away from it (van der
             # Vorst); costs 1 extra matvec every 64 iterations
-            R = B - matvec(A, X)
+            R = B - _apply_op(A, X, proj)
         else:
             R = R - alpha[:, None, None] * AP
         Z = apply_M(R)
@@ -338,13 +542,29 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
     return CGState(X, R, Z, P, rz, k, best, since, rn2)
 
 
-def _true_relres(A, B, X, safe_bnorm):
-    R = B - stencil_matvec(A, X)
+def _true_relres(A, B, X, safe_bnorm, proj=None):
+    R = B - _apply_op(A, X, proj)
     return torch.sqrt(_colsum(R * R)) / safe_bnorm
 
 
+def _cg_tol(rtol, bnorm: torch.Tensor) -> torch.Tensor:
+    """Absolute CG targets max(rtol, 32 eps) * bnorm, in the dtype JAX
+    (under x64) gives jnp.maximum(rtol, eps_floor) * bnorm: a Python
+    float is weakly typed and takes bnorm's dtype; a numpy scalar or
+    array promotes with it (np.float64 or a float64 array: float64).
+    The loop's `resnorm > tol` then compares in float64, as JAX's does."""
+    ftype = {torch.float32: np.float32, torch.float64: np.float64}[
+        bnorm.dtype]
+    dt = (np.dtype(ftype) if type(rtol) in (float, int) else
+          np.promote_types(np.asarray(rtol).dtype, ftype))
+    rt = np.maximum(np.asarray(rtol, dt), dt.type(32 * np.finfo(ftype).eps))
+    rt = torch.as_tensor(rt, device=bnorm.device)
+    return rt * bnorm.to(rt.dtype)
+
+
 def stencil_cg(A: StencilOperator, B: torch.Tensor, rtol=1e-6,
-               itmax=100_000, chunk=512, prec=None, prec_apply=None):
+               itmax=100_000, chunk=512, prec=None, prec_apply=None,
+               proj=None):
     """Chunked preconditioned-CG driver: the loop runs in bursts of
     `chunk` iterations with a progress check between bursts; a burst
     that makes no progress (stall at the f32 floor or the divergence
@@ -355,23 +575,20 @@ def stencil_cg(A: StencilOperator, B: torch.Tensor, rtol=1e-6,
     array.  Returns (X, relres (nrhs,), iters)."""
     bnorm = torch.sqrt(_colsum(B * B))
     safe_bnorm = torch.where(bnorm == 0, 1.0, bnorm)
-    eps_floor = 32 * torch.finfo(B.dtype).eps
-    rt = torch.as_tensor(np.maximum(rtol, eps_floor), dtype=B.dtype,
-                         device=B.device)
-    tol = rt * bnorm
+    tol = _cg_tol(rtol, bnorm)
 
-    state = _cg_state_init(A, B, prec, prec_apply)
+    state = _cg_state_init(A, B, prec, prec_apply, proj)
     k_prev = -1
     while True:
         state = _cg_loop(A, B, state, tol, safe_bnorm, state.k + chunk,
-                         itmax, prec, prec_apply)
+                         itmax, prec, prec_apply, proj)
         k = state.k
         resnorm = torch.sqrt(state.rn2)
         if (k >= itmax or k == k_prev or
                 not bool(torch.any(resnorm > tol))):
             break
         k_prev = k
-    relres = _true_relres(A, B, state.X, safe_bnorm)
+    relres = _true_relres(A, B, state.X, safe_bnorm, proj)
     return state.X, relres, state.k
 
 
@@ -412,7 +629,7 @@ MAX_PASSES = 6
 
 
 def _solve_pairs_fused(S64, A_lo, prec, prec_apply, sc, dc, point_cells,
-                       rtol, itmax):
+                       rtol, itmax, proj=None):
     """The mixed-precision pair solve: RHS scatter, iterative refinement
     (f32 MG-CG inner passes at INNER_RTOL, f64 true-residual outer loop,
     additional passes only while a column is above rtol), final f64
@@ -422,6 +639,10 @@ def _solve_pairs_fused(S64, A_lo, prec, prec_apply, sc, dc, point_cells,
     b_pad = sc.shape[0]
     H, W = S64.shape
     B64 = _pairs_rhs(sc, dc, H, W, b_pad)
+    if proj is not None:
+        # collapsed-system RHS: Pi b spreads the unit injection over the
+        # focal node's polygon
+        B64 = poly_project(proj, B64)
     # padded columns (src == dst) scatter to net-zero RHS already
     bnorm = torch.sqrt(_colsum(B64 * B64))
     safe_bnorm = torch.where(bnorm == 0, 1.0, bnorm)
@@ -441,11 +662,11 @@ def _solve_pairs_fused(S64, A_lo, prec, prec_apply, sc, dc, point_cells,
         tol32 = torch.maximum(
             tol64, INNER_RTOL * torch.sqrt(_colsum(R32 * R32))
         ).to(torch.float32)
-        st = _cg_state_init(A_lo, R32, prec, prec_apply)
+        st = _cg_state_init(A_lo, R32, prec, prec_apply, proj)
         st = _cg_loop(A_lo, R32, st, tol32, safe32, kcap, kcap, prec,
-                      prec_apply)
+                      prec_apply, proj)
         X = X + st.X.to(torch.float64)
-        R = B64 - stencil_matvec(S64, X)
+        R = B64 - _apply_op(S64, X, proj)
         rel = torch.sqrt(_colsum(R * R)) / safe_bnorm
         iters += st.k
         npass += 1
@@ -455,22 +676,25 @@ def _solve_pairs_fused(S64, A_lo, prec, prec_apply, sc, dc, point_cells,
 
 def stencil_solve_pairs(S64: StencilOperator, src_cells: np.ndarray,
                         dst_cells: np.ndarray, rtol=1e-6, itmax=100_000,
-                        prec=None, prec_apply=None, max_refine=4):
-    """Device-resident mixed-precision pair solve.
+                        prec=None, prec_apply=None, max_refine=4,
+                        proj=None):
+    """Device-resident mixed-precision pair solve; proj collapses
+    polygons (shared, or one merge pattern per pair).
 
     Returns (X (f64 device tensor, (b_pad, H, W)), rel (np, nb), iters).
     """
     nb = src_cells.shape[0]
     X, _, rel, iters = _fused_pair_solve(
         S64, src_cells, dst_cells, np.zeros((1, 2), np.int64),
-        rtol, itmax, prec, prec_apply, max_refine)
+        rtol, itmax, prec, prec_apply, max_refine, proj)
     return X, rel[:nb], iters
 
 
 def _fused_pair_solve(S64, src_cells, dst_cells, point_cells, rtol, itmax,
-                      prec, prec_apply, max_refine):
+                      prec, prec_apply, max_refine, proj=None):
     """Fused solve with a chunked-driver fallback for the (rare) case
-    the refinement passes don't reach rtol."""
+    the refinement passes don't reach rtol.  A per-column projector is
+    padded with all-trash rows to the padded batch."""
     H, W = S64.shape
     dev = S64.diag.device
     nb = src_cells.shape[0]
@@ -479,6 +703,8 @@ def _fused_pair_solve(S64, src_cells, dst_cells, point_cells, rtol, itmax,
     dc_np = np.zeros((b_pad, 2), np.int64)
     sc_np[:nb] = src_cells
     dc_np[:nb] = dst_cells
+    if proj is not None:
+        proj = _pad_projector_rows(proj, b_pad)
     # padded columns: src == dst == (0,0) -> the +-1 scatter cancels and
     # the RHS column is exactly zero (rel = 0, never gates convergence)
     sc = torch.as_tensor(sc_np, device=dev)
@@ -490,23 +716,25 @@ def _fused_pair_solve(S64, src_cells, dst_cells, point_cells, rtol, itmax,
         A_lo = _to_dtype(S64, torch.float32)
 
     X, rel_d, total_iters, Vp_d = _solve_pairs_fused(
-        S64, A_lo, prec, prec_apply, sc, dc, pc, rtol, itmax)
+        S64, A_lo, prec, prec_apply, sc, dc, pc, rtol, itmax, proj)
     rel = rel_d.cpu().numpy()
     Vp = Vp_d.cpu().numpy()
 
     if not np.all(rel[:nb] <= rtol) and max_refine > 2:
         B = _pairs_rhs(sc, dc, H, W, b_pad)
+        if proj is not None:
+            B = poly_project(proj, B)
         bnorm = torch.sqrt(_colsum(B * B))
         safe_bnorm = torch.where(bnorm == 0, 1.0, bnorm).cpu().numpy()
-        R = B - stencil_matvec(S64, X)
+        R = B - _apply_op(S64, X, proj)
         for _ in range(max_refine - 2):
             inner = np.clip(rtol / np.where(rel == 0, 1.0, rel),
                             INNER_RTOL, 0.05)
             dX, _, it = stencil_cg(A_lo, R.to(torch.float32), inner,
                                    itmax=itmax, prec=prec,
-                                   prec_apply=prec_apply)
+                                   prec_apply=prec_apply, proj=proj)
             X = X + dX.to(torch.float64)
-            R = B - stencil_matvec(S64, X)
+            R = B - _apply_op(S64, X, proj)
             rel = torch.sqrt(_colsum(R * R)).cpu().numpy() / safe_bnorm
             total_iters += int(it)
             if np.all(rel[:nb] <= rtol):

@@ -1,13 +1,15 @@
 """Where the time of the port's main path goes, on one NVIDIA GPU.
 
     python3 profile_torch.py [--size 1000] [--points 32] [--maps]
-                             [--trace PATH]
+                             [--polygons | --regions N] [--trace PATH]
 
 Runs the bench.py job (seed 42, size x size conductance raster with ~10%
 NODATA, `points` focal points, cg+amg, single precision, shortcut mode;
 with --maps, the cumulative and max current maps on, which solves every
-pair) through circuitscape_tpu_torch.compute(..., "cuda"): one warm run,
-then one run under torch.profiler.  Prints, as JSON lines:
+pair; with --polygons, chip_smoke.py's 20 short-circuit polygons; with
+--regions N, its focal-region job with N regions on points 1..N)
+through circuitscape_tpu_torch.compute(..., "cuda"): one warm run, then
+one run under torch.profiler.  Prints, as JSON lines:
   - the job's wall time, host-timer sections and solver stats;
   - device time per kernel name (sum and count) over the run: the 25
     largest, and each of the port's seven kernels under its wrapper's
@@ -51,6 +53,10 @@ def main():
     ap.add_argument("--points", type=int, default=32)
     ap.add_argument("--maps", action="store_true",
                     help="write the cumulative and max current maps")
+    ap.add_argument("--polygons", action="store_true",
+                    help="add chip_smoke.py's short-circuit polygons")
+    ap.add_argument("--regions", type=int, default=0,
+                    help="focal regions on the first N points instead")
     ap.add_argument("--trace", default="",
                     help="write the Chrome trace to this path")
     args = ap.parse_args()
@@ -59,7 +65,8 @@ def main():
         return 2
 
     import circuitscape_tpu_torch as cst
-    from chip_smoke import card_line, make_job
+    from chip_smoke import (card_line, make_job, make_polygon_job,
+                            make_regions_job)
     from circuitscape_tpu_torch import stats
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
     from circuitscape_tpu_torch.timer import CSTIMER
@@ -69,7 +76,13 @@ def main():
     scratch = os.path.join(HERE, "build", "profile")
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as d:
-        cfg, _ = make_job(d, args.size, args.size, args.points)
+        if args.polygons:
+            cfg, _, _ = make_polygon_job(d, args.size, args.size,
+                                         args.points)
+        elif args.regions:
+            cfg = make_regions_job(d, args.size, args.size, args.regions)
+        else:
+            cfg, _ = make_job(d, args.size, args.size, args.points)
         if args.maps:
             cfg.update(write_cum_cur_map_only="True",
                        write_max_cur_maps="True")
@@ -104,7 +117,8 @@ def main():
             s[0] += us / 1e3
             s[1] += n
     print(json.dumps({"size": args.size, "points": args.points,
-                      "maps": args.maps,
+                      "maps": args.maps, "polygons": args.polygons,
+                      "regions": args.regions,
                       "wall_s": wall, "timers_s": timers,
                       "cg_iters": st.get("cg_iters"),
                       "solve_s": st.get("solve_s")}))

@@ -91,7 +91,6 @@ def test_golden_sgverify4_maps_off(tmp_path, monkeypatch):
     ({"scenario": "all-to-one"}, "item 8"),
     ({"data_type": "network"}, "item 9"),
     ({"solver": "cholmod"}, "item 9"),
-    ({"use_polygons": "True"}, "item 7"),
     # maps on: a 20x20 grid is below CS_PAIRWISE_DEVICE_MIN, so the JAX
     # package takes its general sparse-graph path
     ({"write_cur_maps": "True"}, "item 9"),
@@ -104,11 +103,37 @@ def test_uncarried_scenarios_raise(tmp_path, override, item):
         cst.compute(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("case", ["regions_below_threshold",
+                                  "polygons_cholmod"])
+def test_uncarried_polygon_jobs_raise(tmp_path, case):
+    """Jobs the JAX package sends to its general sparse-graph tier: a
+    focal-region job below CS_PAIRWISE_DEVICE_MIN cells (its per-pair
+    host loop), and a polygon job with a direct solver."""
+    cfg = _bench_job(str(tmp_path), 20, 20, 3)
+    if case == "regions_below_threshold":
+        pts = np.load(tmp_path / "points.npy")
+        r, c = np.argwhere(pts == 1)[0]
+        pts[max(r - 1, 0):r + 2, max(c - 1, 0):c + 2] = 1
+        np.save(tmp_path / "points.npy", pts)
+    else:
+        poly = np.zeros((20, 20))
+        poly[2:6, 3:8] = 1
+        np.save(tmp_path / "poly.npy", poly)
+        cfg.update(use_polygons="True", polygon_file=str(tmp_path /
+                                                         "poly.npy"),
+                   solver="cholmod")
+    cfg.update(output_file=str(tmp_path / "x.out"))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        cst.compute(cfg, device="cpu")
+
+
 @pytest.mark.parametrize("ini,item", [
-    ("input/raster/pairwise/6/sgVerify6.ini", "item 7"),    # focal regions
-    ("input/raster/pairwise/10/sgVerify10.ini", "item 7"),
+    ("input/raster/pairwise/6/sgVerify6.ini", "item 9"),    # focal regions
+    ("input/raster/pairwise/10/sgVerify10.ini", "item 9"),
 ])
 def test_uncarried_corpus_jobs_raise(tmp_path, monkeypatch, ini, item):
+    """Focal-region goldens below CS_PAIRWISE_DEVICE_MIN: the JAX package
+    runs them pair by pair on its general tier."""
     monkeypatch.chdir(DATA_DIR)
     cfg = cst.parse_config(ini).to_dict()
     cfg.update(write_volt_maps="False", write_cur_maps="False",

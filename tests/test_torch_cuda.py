@@ -144,3 +144,31 @@ def test_matvec_pap_repeats_to_the_bit(dev, shape):
     y1, p1 = cs.matvec_pap(A, x)
     y2, p2 = cs.matvec_pap(A, x)
     assert torch.equal(p1, p2) and torch.equal(y1, y2)
+
+
+@pytest.mark.parametrize("per_column", [False, True])
+def test_poly_project_repeats_and_matches_cpu(dev, per_column):
+    """The polygon projector's torch glue on the card: poly_project and
+    poly_sum give the same bits on two calls and agree with the CPU, on
+    a shared (1024^2, B = 32) and a per-column (three rows) projector."""
+    from circuitscape_tpu_torch.solve import stencil as st
+    rng = np.random.default_rng(3)
+    H = W = 1024 if not per_column else 96
+    nm = np.arange(1, H * W + 1).reshape(H, W)
+    rows = []
+    for k in range(3 if per_column else 1):
+        m = nm.copy()
+        for _ in range(5):
+            r, c = rng.integers(0, H - 9, 2)
+            m[r:r + 9, c:c + 9] = m[r, c]
+        rows.append(m)
+    build = ((lambda d: st.build_poly_projector_rows(rows, (H, W), d))
+             if per_column else
+             (lambda d: st.build_poly_projector(rows[0], (H, W), d)))
+    proj, ref = build(dev), build("cpu")
+    x = torch.as_tensor(rng.standard_normal((len(rows) if per_column else
+                                             32, H, W)), dtype=torch.float32)
+    for fn in (st.poly_project, st.poly_sum):
+        a, b = fn(proj, x.to(dev)), fn(proj, x.to(dev))
+        assert torch.equal(a, b)
+        _close(a.cpu(), fn(ref, x))

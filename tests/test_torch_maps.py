@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 import circuitscape_tpu as cs
 import circuitscape_tpu_torch as cst
+from circuitscape_tpu.graph import build as jbuild
 from circuitscape_tpu.io import raster as jraster
 from circuitscape_tpu.solve import stencil as jst
 from circuitscape_tpu_torch.io import raster as traster
@@ -84,8 +85,17 @@ def test_node_currents_match_jax():
                                     out_dtype=torch.float32)
     assert got.dtype == torch.float32
     assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tst.stencil_node_currents(T, torch.as_tensor(V), proj=object())
+    # a polygon map: merged-node currents (tests/test_torch_poly.py holds
+    # the per-column case)
+    poly = np.zeros(g.shape, np.int64)
+    poly[3:9, 4:12] = 1
+    poly[20:30, 40:45] = 2
+    nm = jbuild.construct_node_map(g, poly)
+    ref = np.asarray(jst.stencil_node_currents(
+        S, jnp.asarray(V), proj=jst.build_poly_projector(nm)))
+    got = tst.stencil_node_currents(T, torch.as_tensor(V),
+                                    proj=tst.build_poly_projector(nm))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12, atol=1e-12)
 
 
 def test_write_aagrid_matches_jax(tmp_path):
@@ -203,6 +213,27 @@ def test_maps_resume_matches_jax(tmp_path, monkeypatch):
     rt = cst.compute(cfg, device="cpu")
     assert calls == [1] * 5                  # 6 pairs, the first restored
     assert not os.path.exists(cfg["checkpoint_file"])
+    _assert_jobs_agree(tmp_path, rt, rj)
+
+
+def test_maps_chunk_bytes_sets_batch_width(tmp_path, monkeypatch):
+    """CS_MAPS_CHUNK_BYTES sets the maps path's chunk budget, as in the
+    JAX package: two columns' worth of bytes (9 float64 blocks each)
+    gives chunks of 2 pairs in both packages, and the same answers."""
+    from circuitscape_tpu.solve import stencil as jstencil
+    from circuitscape_tpu_torch.solve import stencil
+    monkeypatch.setenv("CS_PAIRWISE_DEVICE_MIN", "1")
+    monkeypatch.setenv("CS_MAPS_CHUNK_BYTES", str(2 * 40 * 36 * 8 * 9))
+    cfg = _bench_job(str(tmp_path), 40, 36, 4)
+    cfg.update(write_cum_cur_map_only="True")
+    widths = {"t": [], "j": []}
+    for mod, key in ((stencil, "t"), (jstencil, "j")):
+        solve = mod.stencil_solve_pairs
+        monkeypatch.setattr(mod, "stencil_solve_pairs",
+                            lambda *a, _s=solve, _k=key, **k:
+                            widths[_k].append(len(a[1])) or _s(*a, **k))
+    rt, rj = _run_both(tmp_path, cfg)
+    assert widths == {"t": [2, 2, 2], "j": [2, 2, 2]}
     _assert_jobs_agree(tmp_path, rt, rj)
 
 

@@ -224,6 +224,73 @@ def test_cg_loop_decides_as_jax(case):
     np.testing.assert_allclose(bt, bj, rtol=1e-5)
 
 
+def _jax_tol(rtol, bnorm):
+    """The JAX stencil_cg's target from its column norms, as
+    circuitscape_tpu/solve/stencil.py stencil_cg forms it."""
+    eps_floor = 32 * jnp.finfo(bnorm.dtype).eps
+    return jnp.maximum(rtol, eps_floor) * bnorm
+
+
+@pytest.mark.parametrize("rtol", [1e-4, np.float64(1e-4),
+                                  np.array([1e-4, 1e-7])],
+                         ids=["float", "np.float64", "array"])
+def test_cg_tol_matches_jax(rtol):
+    """stencil_cg's absolute target has JAX's dtype and value, from the
+    same float32 column norms: float32 for a Python float, float64 for a
+    numpy float64 scalar or array (whose second entry sits under the
+    32 eps floor)."""
+    bnorm = np.random.default_rng(7).uniform(0.5, 9.0, 2).astype(F32)
+    ref = np.asarray(_jax_tol(rtol, jnp.asarray(bnorm)))
+    got = tst._cg_tol(rtol, torch.as_tensor(bnorm)).numpy()
+    assert got.dtype == ref.dtype == (F32 if type(rtol) is float
+                                      else np.float64)
+    np.testing.assert_array_equal(got, ref)
+
+
+def _cg_stop(pkg, rtol):
+    """The iteration at which the package's stencil_cg stops on the
+    one-column Jacobi problem of _run_cg_loop."""
+    if pkg == "jax":
+        A = jst.stencil_from_gmap(_LOOP_G, False, False)
+        return int(jst.stencil_cg(A, jnp.asarray(_LOOP_B), rtol,
+                                  itmax=100)[2])
+    A = tst._to_dtype(tst.stencil_from_gmap_device(
+        torch.as_tensor(_LOOP_G), False, False), torch.float32)
+    return tst.stencil_cg(A, torch.as_tensor(_LOOP_B), rtol, itmax=100)[2]
+
+
+def _tol_edge(pkg):
+    """A one-entry float64 rtol array whose float64 target rtol * bnorm
+    lies just under the package's float32 residual norm after one CG
+    iteration, while a target formed in float32 (rtol rounded to
+    float32, times bnorm in float32) rounds up to it: JAX goes on there,
+    a float32 target would stop."""
+    if pkg == "jax":
+        B = jnp.asarray(_LOOP_B)
+        bnorm = np.asarray(jnp.sqrt(jnp.sum(B * B, axis=(-2, -1))))[0]
+    else:
+        B = torch.as_tensor(_LOOP_B)
+        bnorm = torch.sqrt(tst._colsum(B * B)).numpy()[0]
+    rn = np.sqrt(_run_cg_loop(pkg, 1)[3][0])
+    ulp = float(np.spacing(rn))
+    for frac in np.linspace(0.02, 0.48, 47):
+        rtol = (float(rn) - frac * ulp) / float(bnorm)
+        if (rtol * float(bnorm) < float(rn) and
+                F32(F32(rtol) * bnorm) >= rn):
+            return np.array([rtol])
+    raise AssertionError("no float32-rounding edge under the residual")
+
+
+def test_stencil_cg_stops_as_jax_at_tol_edge():
+    """With an array rtol whose float64 target lies just under the first
+    iteration's residual (and rounds up to it in float32), both
+    packages' stencil_cg go on past that iteration and stop at the same
+    k; a target rounded to float32 stopped the port at k = 1."""
+    got = {pkg: _cg_stop(pkg, _tol_edge(pkg)) for pkg in ("jax", "torch")}
+    assert got["jax"] > 1
+    assert got["torch"] == got["jax"]
+
+
 def test_jacobi_cg_without_hierarchy():
     """No hierarchy given: Jacobi-preconditioned inner passes still
     reach the target (stencil_solve_pairs' default, as in JAX)."""
