@@ -22,7 +22,11 @@ Phases (any failure exits non-zero; nothing is caught):
      and level; and poly_project (torch glue, not a TPU kernel) with the
      polygon job's projector at B = 32 on 1024^2: bit-identical on two
      calls, within 1e-6 of max |ref| of a float64 CPU reference, timed
-     beside its byte bound;
+     beside its byte bound; and each kernel at B = 1 (the advanced job's
+     width) and B = 32 on every level of the advanced job's
+     penalty-baked hierarchy (phase 7's ground field coarsened into every
+     diagonal), compared per cell: |kernel - plain| <= 1e-5 * (|plain| +
+     max |plain| over unpenalized cells);
   3. drive the main path: the bench.py job (seed 42, 1000 x 1000
      conductance raster with ~10% NODATA, 32 focal points, cg+amg,
      single precision, shortcut mode) through compute(..., "cuda"):
@@ -50,18 +54,38 @@ Phases (any failure exits non-zero; nothing is caught):
      (5 x 5 blocks on points 1-8), 28 pairs in one chunk with a
      per-column projector, maps off: one run; resistances finite,
      symmetric, positive, none above phase 3's between the same points;
-  7. run 256 x 256 jobs of the same recipes on "cuda" and on "cpu": the
+  7. drive the advanced job (make_advanced_job: the bench raster, 16
+     sources, 8 finite and 8 direct grounds, voltage and current maps):
+     one run with the counters zeroed just before it; the residual of
+     its float64 solution, against graph/build's sparse Laplacian, under
+     the gate; voltages >= -1e-6 max with the maximum at
+     a source, every kernel launched and matvec_pap at 1024^2 each CG
+     iteration;
+  8. drive the one-to-all job (the bench points in one batch of 32, maps
+     off) and the all-to-one job (cumulative and per-point current maps):
+     one run each with the counters zeroed just before it; one-to-all
+     results positive, finite and at most the bench job's smallest
+     resistance from the same point; all-to-one results 0 and the
+     cumulative map finite, >= 0, > 0 somewhere; in both, matvec at
+     1024^2 every CG iteration and matvec_pap never; per_job lines;
+  9. run 256 x 256 jobs of the same recipes on "cuda" and on "cpu": the
      shortcut job (resistances agree to 1e-5 relative) and an 8-point
      maps job with per-pair current and voltage maps and the max map
      (the same files, every map within 1e-5 of max |cpu map|); then the
-     polygon shortcut job, an 8-point polygon maps job and a 4-region
-     focal-region maps job, each also with the same CG iteration count
-     on both devices;
-  8. print the kernels line, the card line and, last, the result line.
+     polygon shortcut job, an 8-point polygon maps job, a 4-region
+     focal-region maps job, the advanced job with and without polygons,
+     an 8-point one-to-all polygon job and an 8-point all-to-one job
+     with per-point current maps (Kirchhoff: each point's map at its
+     ground carries the other points' current); the first three with
+     the same CG iteration count on both devices, the last four with
+     each of the card's CG passes replayed on the CPU from its own
+     inputs stopping within one iteration of the card's;
+  10. print the kernels line, the card line and, last, the result line.
 
 Exits 2 without printing a result when no CUDA device is available.
 """
 
+import dataclasses
 import json
 import os
 import shutil
@@ -110,6 +134,7 @@ KERNELS = (
     ("cheb_finish", "circuitscape_tpu/solve/pallas_stencil.py:595", 25),
 )
 CG_ITERS = 10     # the bench job's CG iterations (one chunk of 31 pairs)
+PEN_BATCHES = (1, MAIN_B)   # the advanced job's width, and the others'
 SOURCE = "circuitscape_tpu_torch/csrc/stencil_kernels.cu"
 
 
@@ -236,6 +261,46 @@ def make_regions_job(d, H, W, nregions, half=2, seed=42):
     np.save(cfg["habitat_file"], g)
     np.save(cfg["point_file"], regions)
     return cfg
+
+
+def make_advanced_job(d, H, W, polygons=False, seed=42):
+    """The bench raster (with make_polygon_job's polygons if asked) as an
+    advanced job on its 32 focal points: 1-16 sources of strength 1-16,
+    17-24 finite grounds (resistance 2.0), 25-32 direct grounds
+    (resistance 0, with ground_file_is_resistances), voltage and current
+    maps on.  Returns (config dict, gmap, source grid, ground conductance
+    grid with inf at direct grounds)."""
+    if polygons:
+        cfg, gmap, _ = make_polygon_job(d, H, W, seed=seed)
+    else:
+        cfg, gmap = make_job(d, H, W, seed=seed)
+    pts = np.load(cfg["point_file"])
+    src = np.where((pts >= 1) & (pts <= 16), pts, 0.0)
+    gnd = np.full(pts.shape, -9999.0)
+    gnd[(pts >= 17) & (pts <= 24)] = 2.0
+    gnd[pts >= 25] = 0.0
+    for name, a in (("sources", src), ("grounds", gnd)):
+        np.save(os.path.join(d, f"{name}.npy"), a)
+    cond = np.where(gnd == 2.0, 0.5, np.where(gnd == 0.0, np.inf, 0.0))
+    return dict(cfg, scenario="advanced",
+                source_file=os.path.join(d, "sources.npy"),
+                ground_file=os.path.join(d, "grounds.npy"),
+                ground_file_is_resistances="True", write_volt_maps="True",
+                write_cur_maps="True",
+                output_file=os.path.join(d, "adv.out")), gmap, src, cond
+
+
+def make_onetoall_polygons(d, H, W, npoints=8, seed=42):
+    """make_polygon_job's polygons without those that hold a focal point
+    (1-7 are centred on points; a focal point inside a polygon makes the
+    one-to-all device path diverge, in the JAX package as here), as a
+    one-to-all job.  Returns the config dict."""
+    cfg, _, poly = make_polygon_job(d, H, W, npoints, seed)
+    pts = np.load(cfg["point_file"])
+    for pid in np.unique(poly[(pts > 0) & (poly > 0)]):
+        poly[poly == pid] = 0
+    np.save(cfg["polygon_file"], poly)
+    return dict(cfg, scenario="one-to-all")
 
 
 def check_resistances(r, label, n=32, merged=False):
@@ -534,6 +599,262 @@ def check_launched(launches, label):
                                  f"{label}")
 
 
+def phase_pen_kernels(gmap, cond, dev):
+    """Each kernel against its plain version on every level of the
+    advanced job's penalty-baked hierarchy (1024^2 down to 32^2, the
+    ground field coarsened into every diagonal), at B = 1 (the advanced
+    job's width, whose launches split the grid differently) and B = 32
+    (one-to-all's and all-to-one's chunk width).  A penalized
+    cell's value is ~1e8 times its neighbours', so a tolerance relative
+    to max |plain| would hide every other cell: the comparison is per
+    cell, |kernel - plain| <= TOL * (|plain| + max |plain| over the
+    unpenalized cells), and per column for matvec_pap's p.Ap.  Returns
+    {B: {name: worst ratio of error to that bound's scale}}."""
+    from circuitscape_tpu_torch.solve.geomg import (_diag_from_planes_torch,
+                                                    _restrict)
+    from circuitscape_tpu_torch.solve.prepare import \
+        prepare_stencil_solver_from_gmap_pen
+    _, prec, _, _, _ = prepare_stencil_solver_from_gmap_pen(
+        gmap, False, False, cond, dev)
+    rng = np.random.default_rng(17)
+    worst = {B: {name: 0.0 for name, _, _ in KERNELS} for B in PEN_BATCHES}
+    for L in prec.levels:
+        A, H, W = L.A, *L.A.shape
+        pen = (A.diag - _diag_from_planes_torch(A.we, A.ws, A.wse,
+                                                A.wne)) > 0
+        masks = {(H, W): pen,
+                 (-(-H // 2), -(-W // 2)): _restrict(pen[None].float())[0] > 0}
+        for B in PEN_BATCHES:
+            blocks = [torch.as_tensor(rng.standard_normal((B, H, W)),
+                                      dtype=torch.float32, device=dev)
+                      for _ in range(4)]
+            for name, _, _ in KERNELS:
+                kern, plain = _pairs(name, A, L.inv_diag, blocks)
+                for g_, r_ in zip(_as_tuple(kern()), _as_tuple(plain())):
+                    if r_.dim() == 1:
+                        scale = r_.abs()
+                    else:
+                        m = masks[tuple(r_.shape[-2:])]
+                        scale = r_.abs() + r_.abs()[:, ~m].max()
+                    rel = float(((g_ - r_).abs() / scale).max())
+                    if not rel <= TOL:
+                        raise AssertionError(
+                            f"{name} on the pen-baked level {H}x{W} at "
+                            f"B={B}: error {rel} of the per-cell scale > "
+                            f"{TOL}")
+                    worst[B][name] = max(worst[B][name], rel)
+        note(f"pen-baked level {H}x{W}: {int(pen.sum())} penalized cells, "
+             f"diag max/median {float(A.diag.max() / A.diag.median()):.3g}; "
+             f"all seven kernels agree per cell at B in {PEN_BATCHES}")
+    for B, w in worst.items():
+        note(f"pen-baked hierarchy B={B}, worst error per cell scale: " +
+             ", ".join(f"{k} {v:.2e}" for k, v in w.items()))
+    return worst
+
+
+class record_passes:
+    """Records the CG iteration count of every inner pass (a call of
+    mod.stencil_cg; by default this package's) while active, and with
+    keep=True the pass's arguments.  The port's tests use it on both
+    packages."""
+
+    def __init__(self, keep=False, mod=None):
+        self.keep, self.mod, self.iters, self.calls = keep, mod, [], []
+
+    def __enter__(self):
+        if self.mod is None:
+            from circuitscape_tpu_torch.solve import stencil as st
+            self.mod = st
+        self.real = self.mod.stencil_cg
+
+        def rec(*a, **k):
+            out = self.real(*a, **k)
+            self.iters.append(int(out[2]))
+            if self.keep:
+                self.calls.append((a, k))
+            return out
+        self.mod.stencil_cg = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.stencil_cg = self.real
+
+    def replay_on_cpu(self):
+        """Each recorded pass rerun on the CPU (plain versions) from the
+        same operator, right-hand side, tolerance, hierarchy, penalty
+        and projector; returns the iteration counts."""
+        return [int(self.real(*_cpu(a), **_cpu(k))[2])
+                for a, k in self.calls]
+
+
+def _cpu(x):
+    """Tensors, and the dataclasses, tuples and dicts holding them
+    (operators, hierarchies, projectors), copied to the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _cpu(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cpu(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    return x
+
+
+def run_job(cfg, label):
+    """One run of cfg on the card with the launch counters zeroed just
+    before it.  Returns (result, seconds, launches, launches per shape,
+    CG iterations, CG iterations per pass)."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch import stats
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    from circuitscape_tpu_torch.timer import CSTIMER
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    with record_passes() as rp:
+        t = time.perf_counter()
+        r = cst.compute(cfg, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    launches, launches_at = dict(cs.LAUNCHES), dict(cs.LAUNCHES_AT)
+    iters = stats.finalize().get("cg_iters")
+    sections = {"/".join(p[1:]): round(tot, 4)
+                for p, (_, tot) in sorted(CSTIMER._data.items())
+                if len(p) > 1}
+    at = ", ".join(f"{k} {H}x{W}: {n}" for (k, H, W), n in
+                   sorted(launches_at.items()))
+    note(f"{label} run: {dt:.3f} s, cg_iters {iters} (per pass "
+         f"{rp.iters}), launches {launches}; per shape {at}; sections "
+         f"{sections}")
+    return r, dt, launches, launches_at, iters, rp.iters
+
+
+def phase_advanced(cfg, gmap, src, cond):
+    """The advanced job at full width (16 sources, 8 finite and 8 direct
+    grounds, voltage and current maps, single precision): one run with
+    the counters zeroed just before it.  The residual of its float64
+    solution (the batched solve's output, before the float32 cast) in
+    (L + G) v = s, over the components holding a ground, with L the
+    sparse Laplacian of graph/build (not the solve's stencil builder)
+    and the direct grounds' penalty 1e8 max diag L, under the gate; the job's voltages >= -1e-6 max, with the maximum at a
+    source (maximum principle); all seven kernels launched, matvec_pap
+    on the 1024^2 level (the CG body on the pen-baked fine operator)."""
+    from scipy import ndimage
+
+    from circuitscape_tpu_torch import consts
+    from circuitscape_tpu_torch.graph import build
+    from circuitscape_tpu_torch.solve import stencil as st
+    solve, solutions = st.stencil_solve_advanced_batch, []
+
+    def keep(*a, **k):
+        out = solve(*a, **k)
+        solutions.append(out[0])
+        return out
+    st.stencil_solve_advanced_batch = keep
+    try:
+        v, dt, launches, launches_at, iters, _ = run_job(cfg, "advanced job")
+    finally:
+        st.stencil_solve_advanced_batch = solve
+    H, W = gmap.shape
+    x = solutions[0][0, :H, :W].cpu().numpy()
+    lab, _ = ndimage.label(gmap > 0, structure=np.ones((3, 3)))
+    grounded = np.unique(lab[(cond > 0) & (lab > 0)])
+    nodemap = build.construct_node_map(gmap, np.zeros((0, 0)))
+    L = build.laplacian(build.construct_graph(gmap, nodemap, False, False))
+
+    def nodes(a):
+        out = np.zeros(L.shape[0])
+        out[nodemap[nodemap > 0] - 1] = a[nodemap > 0]
+        return out
+    pen = nodes(np.where(np.isinf(cond), 1e8 * L.diagonal().max(), cond))
+    s, xn = nodes(np.where(np.isin(lab, grounded), src, 0.0)), nodes(x)
+    res = s - (L @ xn + pen * xn)
+    rel = float(np.linalg.norm(res) / np.linalg.norm(s))
+    if not rel < consts.RESIDUAL_GATE:
+        raise AssertionError(f"advanced job: residual {rel}")
+    top = np.unravel_index(np.argmax(v), v.shape)
+    if not (np.all(np.isfinite(v)) and v.min() >= -1e-6 * v.max() and
+            src[top] > 0):
+        raise AssertionError(f"advanced job: voltages {v.min()}..{v.max()}, "
+                             f"maximum at {top} (source {src[top]})")
+    check_launched(launches, "advanced job")
+    fine = launches_at.get(("matvec_pap", *MAIN_HW), 0)
+    if fine < iters:
+        raise AssertionError(f"advanced job: matvec_pap at {MAIN_HW} "
+                             f"launched {fine} times for {iters} CG "
+                             "iterations")
+    note(f"advanced job: {dt:.3f} s, {iters} CG iterations, residual "
+         f"{rel:.3e}, voltages {v.min():.3e}..{v.max():.6g}"
+         f" with the maximum at source {int(src[top])}, matvec_pap at "
+         f"{MAIN_HW[0]}x{MAIN_HW[1]} {fine} launches (B = 1: phase 2's "
+         "B = 32 level times do not apply; profile_torch.py --advanced "
+         "gives its kernel times)")
+
+
+def check_unfused(label, launches, launches_at, iters):
+    """The one-to-all and all-to-one CG body: the matvec kernel on the
+    1024^2 level every iteration, matvec_pap never; every other kernel
+    launched."""
+    fine = launches_at.get(("matvec", *MAIN_HW), 0)
+    if fine < iters or launches["matvec_pap"] != 0:
+        raise AssertionError(f"{label}: matvec at {MAIN_HW} launched {fine} "
+                             f"times for {iters} CG iterations, matvec_pap "
+                             f"{launches['matvec_pap']} times")
+    check_launched({k: n for k, n in launches.items() if k != "matvec_pap"},
+                   label)
+    return fine
+
+
+def phase_onetoall(cfg, r_plain, level_times):
+    """The one-to-all job at full width: the bench raster and its 32
+    points in one batch, maps off, one run with the counters zeroed just
+    before it.  Each result (point i against all others grounded) is
+    positive, finite and at most min over j of the bench job's R[i, j]
+    (grounding the other points shorts them together)."""
+    cfg = dict(cfg, scenario="one-to-all", output_file=os.path.join(
+        os.path.dirname(cfg["output_file"]), "o2a.out"))
+    r, dt, launches, launches_at, iters, _ = run_job(cfg, "one-to-all job")
+    m = r_plain[1:, 1:]
+    bound = np.min(np.where(np.eye(32, dtype=bool), np.inf, m), axis=1)
+    res = r[:, 1]
+    np.testing.assert_array_equal(r[:, 0], r_plain[0, 1:])
+    if not (np.all(np.isfinite(res)) and np.all(res > 0) and
+            np.all(res <= bound * (1 + 1e-4))):
+        raise AssertionError(f"one-to-all job: results {res} against the "
+                             f"pairwise bound {bound}")
+    fine = check_unfused("one-to-all job", launches, launches_at, iters)
+    note(f"one-to-all job: {dt:.3f} s, {iters} CG iterations, result / "
+         f"min pairwise R {float((res / bound).min()):.4f}.."
+         f"{float((res / bound).max()):.4f}, matvec at "
+         f"{MAIN_HW[0]}x{MAIN_HW[1]} {fine} launches, matvec_pap 0")
+    note_per_job(level_times, launches_at, " one-to-all job")
+
+
+def phase_alltoone(cfg, gmap, level_times):
+    """The all-to-one job at full width: 32 points with the cumulative
+    current map (write_cum_cur_map_only and write_cur_maps; the device
+    path then writes the 32 per-point maps too, as the JAX package's
+    does), one run with the counters zeroed just before it.  Results all
+    0; the cumulative map finite, >= 0 on active cells, > 0 somewhere."""
+    d = os.path.dirname(cfg["output_file"])
+    cfg = dict(cfg, scenario="all-to-one", write_cum_cur_map_only="True",
+               write_cur_maps="True", output_file=os.path.join(d, "a2o.out"))
+    r, dt, launches, launches_at, iters, _ = run_job(cfg, "all-to-one job")
+    cum = read_asc(os.path.join(d, "a2o_cum_curmap.asc"))
+    active = gmap > 0
+    if not (np.all(r[:, 1] == 0) and cum.shape == gmap.shape and
+            np.all(np.isfinite(cum)) and np.all(cum[active] >= 0) and
+            np.any(cum > 0)):
+        raise AssertionError("all-to-one job: results not 0, or cumulative "
+                             "map not finite, non-negative and non-zero")
+    fine = check_unfused("all-to-one job", launches, launches_at, iters)
+    note(f"all-to-one job: {dt:.3f} s, {iters} CG iterations, cumulative "
+         f"map max {cum.max():.6g}, matvec at {MAIN_HW[0]}x{MAIN_HW[1]} "
+         f"{fine} launches, matvec_pap 0")
+    note_per_job(level_times, launches_at, " all-to-one job")
+
+
 def phase_poly_project(gmap, poly, dev, rate):
     """poly_project (torch glue, not a TPU kernel) with the polygon job's
     shared projector on a 1024 x 1024, B = 32 float32 block: two calls
@@ -764,6 +1085,99 @@ def phase_agree(d):
         cfg, write_cur_maps="True", write_volt_maps="True",
         write_max_cur_maps="True"), 4, nmaps=2 * 6 + 2)
 
+    for polygons in (False, True):
+        pd = os.path.join(d, f"advanced_{polygons}")
+        os.makedirs(pd)
+        cfg, _, _, _ = make_advanced_job(pd, 256, 256, polygons=polygons)
+        agree_scenario(pd, "256x256 advanced " + ("polygon job" if polygons
+                                                   else "job"), cfg, 2)
+    pd = os.path.join(d, "o2a_poly")
+    os.makedirs(pd)
+    agree_scenario(pd, "256x256 one-to-all polygon job",
+                   make_onetoall_polygons(pd, 256, 256))
+    pd = os.path.join(d, "a2o")
+    os.makedirs(pd)
+    cfg, gmap = make_job(pd, 256, 256, npoints=8)
+    agree_scenario(pd, "256x256 all-to-one maps job", dict(
+        cfg, scenario="all-to-one", write_cur_maps="True"), 8 + 1,
+        kirchhoff=gmap)
+
+
+def agree_scenario(d, label, cfg, nmaps=0, kirchhoff=None):
+    """One advanced, one-to-all or all-to-one job on "cuda" and on "cpu"
+    (outputs in d/cuda, d/cpu): results within 1e-5 (of max |cpu| for an
+    advanced voltage grid, relative per point otherwise), the same nmaps
+    maps, each within 1e-5 of max |cpu map|, and on every pass, given
+    the same inputs, the same CG iteration count within one: each of the
+    card's passes rerun on the CPU from its own operator, right-hand
+    side, hierarchy, penalty and projector.  Totals are not
+    compared: a pass after the first solves the float32 residual of the
+    one before, whose rounding differs between the kernels and their
+    plain versions; within a pass the same rounding can move the
+    stopping iteration by one where the residual stagnates near its
+    target (the advanced polygon job, section 7 of PERF.md).  kirchhoff:
+    the gmap of an all-to-one job with unit
+    strengths and per-point current maps; each point's map at its own
+    cell must equal the number of other points in its component (all
+    the current leaves through its ground), to 1e-4 relative."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch import stats
+    out, iters, passes, files = {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        od = os.path.join(d, dev)
+        os.makedirs(od)
+        with record_passes(keep=dev == "cuda") as rp:
+            out[dev] = cst.compute(dict(cfg, output_file=os.path.join(
+                od, "job.out")), device=dev)
+        iters[dev], passes[dev] = stats.finalize().get("cg_iters"), rp.iters
+        files[dev] = sorted(f for f in os.listdir(od) if f.endswith(".asc"))
+        if dev == "cuda":
+            replayed = rp.replay_on_cpu()
+    a, b = out["cuda"], out["cpu"]
+    if cfg["scenario"] == "advanced":
+        rel = float(np.abs(a - b).max() / np.abs(b).max())
+    else:
+        rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+    note(f"{label}: CG iterations cuda {iters['cuda']} {passes['cuda']}, "
+         f"cpu {iters['cpu']} {passes['cpu']}, the card's passes replayed "
+         f"on the cpu {replayed}; results agree to {rel:.3e}")
+    if not (a.shape == b.shape and np.all(np.isfinite(a)) and rel <= TOL and
+            len(replayed) == len(passes["cuda"]) and
+            all(abs(n - m) <= 1
+                for n, m in zip(replayed, passes["cuda"]))):
+        raise AssertionError(f"{label}: cuda and cpu results differ by {rel}"
+                             f"; CG iterations per pass {passes}, the "
+                             f"card's replayed on the cpu {replayed}")
+    if files["cuda"] != files["cpu"] or len(files["cpu"]) != nmaps:
+        raise AssertionError(f"{label}: cuda wrote {files['cuda']}, cpu "
+                             f"{files['cpu']}")
+    worst = 0.0
+    for f in files["cpu"]:
+        g = read_asc(os.path.join(d, "cuda", f))
+        c = read_asc(os.path.join(d, "cpu", f))
+        err = float(np.abs(g - c).max()) / float(np.abs(c).max())
+        if not err <= TOL:
+            raise AssertionError(f"{label}: {f} differs by {err} of max "
+                                 "|cpu map|")
+        worst = max(worst, err)
+    kirch = ""
+    if kirchhoff is not None:
+        from scipy import ndimage
+        lab, _ = ndimage.label(kirchhoff > 0, structure=np.ones((3, 3)))
+        pts = np.load(cfg["point_file"])
+        cells = {int(p): tuple(np.argwhere(pts == p)[0])
+                 for p in np.unique(pts[pts > 0])}
+        for p, rc in cells.items():
+            others = sum(1 for q, qc in cells.items()
+                         if q != p and lab[qc] == lab[rc])
+            at = read_asc(os.path.join(d, "cuda", f"job_curmap_{p}.asc"))[rc]
+            if not abs(at - others) <= 1e-4 * others:
+                raise AssertionError(f"{label}: point {p} carries {at}, "
+                                     f"expected {others} (Kirchhoff)")
+        kirch = f"; Kirchhoff holds at all {len(cells)} grounds"
+    note(f"{label}: {len(files['cpu'])} maps agree to {worst:.3e} of max "
+         f"|map|{kirch}")
+
 
 def agree_jobs(d, label, cfg, n, nmaps=0):
     """One job on "cuda" and on "cpu" (outputs in d/cuda, d/cpu):
@@ -830,6 +1244,9 @@ def main():
         level_times["matvec"][MAIN_HW] = (
             rows["matvec"]["ms"],
             kernel_bytes("matvec", MAIN_B, *MAIN_HW) / rate * 1e3)
+        adv_cfg, _, adv_src, adv_cond = make_advanced_job(
+            tempfile.mkdtemp(dir=d), 1000, 1000)
+        phase_pen_kernels(gmap, adv_cond, dev)
         phase_poly_project(gmap, poly, dev, rate)
         r, launches_at = phase_main(cfg, rows)
         note_per_job(level_times, launches_at)
@@ -837,6 +1254,9 @@ def main():
         phase_polygons(poly_cfg, r, level_times)
         phase_regions(make_regions_job(tempfile.mkdtemp(dir=d), 1000, 1000,
                                        8), r)
+        phase_advanced(adv_cfg, gmap, adv_src, adv_cond)
+        phase_onetoall(cfg, r, level_times)
+        phase_alltoone(cfg, gmap, level_times)
         phase_agree(tempfile.mkdtemp(dir=d))
     finally:
         shutil.rmtree(d, ignore_errors=True)

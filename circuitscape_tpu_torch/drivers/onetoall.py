@@ -1,0 +1,280 @@
+"""Raster one-to-all / all-to-one scenario driver.
+
+Counterpart of circuitscape_tpu/drivers/onetoall.py.  Parity reference:
+src/raster/onetoall.jl:1-194.  Each focal node is one advanced solve
+(source at the node against grounds at the others, or the inverse); on
+the stencil device path every focal node of the job is one column of a
+batched stencil solve.  The reference's one-solve-per-point host loop,
+which the JAX package keeps for included pairs, merged points, small
+grids and direct solvers, needs the general sparse-graph tier (ROADMAP
+queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from .. import consts, cslog, out, stats
+from ..graph import build
+from ..io.loaders import load_raster_data
+from ..timer import CSTIMER
+from .flags import get_raster_flags
+from .raster import _grid_components
+
+
+def raster_one_to_all(cfg, dtype, device):
+    """src/raster/onetoall.jl:1-11."""
+    with CSTIMER("load raster data"):
+        rasterdata = load_raster_data(cfg, dtype)
+    flags = get_raster_flags(cfg)
+    return onetoall_kernel(rasterdata, flags, cfg, dtype, device)
+
+
+def prune_strengths(strengths, point_ids):
+    """src/raster/onetoall.jl:182-194."""
+    keep = np.isin(strengths[:, 0], point_ids)
+    return strengths[keep]
+
+
+def _onetoall_device_fast(data, flags, cfg, dtype, device):
+    """Batched stencil device path of one-to-all and all-to-one
+    (counterpart of the JAX package's _onetoall_device_fast).
+
+    One-to-all: column i injects point i's strength and grounds every
+    other focal point by a penalty.  The penalty at every focal cell is
+    baked into the MG hierarchy, and each column solves the bare float32
+    Laplacian plus its own penalty field (so the CG body is the matvec
+    kernel, the penalty term and a column dot).
+
+    All-to-one grounds a single, different cell per column, which no
+    shared penalty conditions well: each column solves the balanced
+    floating system instead (the other points' strengths injected, their
+    sum drawn at the ground cell, no penalty in the hierarchy), then is
+    pinned to 0 at its ground within its component, the exact Dirichlet
+    limit.  Its zero penalty field is still passed, as the JAX package
+    does, so its CG body is the unfused one too.
+
+    Columns go in byte-budgeted chunks.  Returns the (point, result)
+    matrix, or None where the JAX package takes its general path:
+    included pairs, repeated point ids or points merged into one node,
+    solvers other than cg+amg, grids below CS_ONETOALL_DEVICE_MIN
+    cells."""
+    from ..solve.dispatch import (SolverFailedError, pow2_floor,
+                                  reraise_if_device_oom, solve_chunk_budget)
+    from ..solve.prepare import (prepare_stencil_solver_from_gmap,
+                                 prepare_stencil_solver_from_gmap_pen)
+    from ..solve.stencil import (_to_dtype, advanced_ground_penalty,
+                                 build_poly_projector,
+                                 stencil_node_currents,
+                                 stencil_solve_advanced_batch)
+
+    strengths = data.strengths
+    gmap = data.cellmap
+    hbmeta = data.hbmeta
+    rows, cols, pts = data.points_rc
+
+    if (not data.included_pairs.isempty() or cfg.solver != "cg+amg" or
+            len(pts) != len(np.unique(pts))):
+        return None
+    min_cells = int(os.environ.get("CS_ONETOALL_DEVICE_MIN", "40000"))
+    if gmap.size < min_cells:
+        return None
+
+    one_to_all = flags.is_onetoall
+    use_var = strengths.size > 0
+    of = flags.outputflags
+    H, W = gmap.shape
+    cslog.info("one-to-all device fast path: %s points in one batch",
+               len(pts))
+
+    bake_pen = one_to_all and len(pts) > 1
+    with CSTIMER("prepare stencil solver (upload + MG setup)"):
+        if bake_pen:
+            pen_spec = np.zeros((H, W))
+            pen_spec[np.asarray(rows) - 1, np.asarray(cols) - 1] = np.inf
+            S64, prec, geomg_apply, _, _ = \
+                prepare_stencil_solver_from_gmap_pen(
+                    gmap, flags.avg_res, flags.four_neighbors, pen_spec,
+                    device)
+        else:
+            S64, prec, geomg_apply, _ = prepare_stencil_solver_from_gmap(
+                gmap, flags.avg_res, flags.four_neighbors, device)
+    # each one-to-all column's operator is the bare Laplacian plus its own
+    # penalty field: prec.levels[0].A holds the shared penalty already
+    A_lo = _to_dtype(S64, torch.float32) if bake_pen else None
+    dev = S64.diag.device
+    Hp, Wp = S64.shape
+
+    with CSTIMER("construct graph"):
+        if data.polymap.size:
+            # polygons merge with the focal points (src/raster/
+            # onetoall.jl:86-90) and can bridge grid islands, so the
+            # components are the merged graph's
+            point_map = np.zeros(gmap.shape, np.int64)
+            for x in range(len(pts)):
+                point_map[rows[x] - 1, cols[x] - 1] = pts[x]
+            newpoly = build.create_new_polymap(gmap, data.polymap,
+                                               data.points_rc, 0, 0,
+                                               point_map)
+            nodemap = build.construct_node_map(gmap, newpoly)
+            proj = build_poly_projector(nodemap, S64.shape, dev)
+            comps = build.components(build.construct_graph(
+                gmap, nodemap, flags.avg_res, flags.four_neighbors))
+        else:
+            nodemap = build.construct_node_map(gmap,
+                                               np.zeros((0, 0), np.int64))
+            proj = None
+            comps = _grid_components(gmap, nodemap, flags.four_neighbors)
+    node_of = [int(nodemap[rows[i] - 1, cols[i] - 1])
+               for i in range(len(pts))]
+    if len(set(node_of)) != len(node_of):
+        return None   # points merged into one node
+    comp_of = np.full(len(pts), -1)
+    for ci, comp in enumerate(comps):
+        cset = set(int(x) for x in comp)
+        for i, node in enumerate(node_of):
+            if node in cset:
+                comp_of[i] = ci
+
+    npts = len(pts)
+    cells = np.column_stack([np.asarray(rows) - 1, np.asarray(cols) - 1])
+    strength = np.ones(npts)
+    if use_var:
+        strength = strengths[:npts, 1].astype(np.float64)
+    penalty = advanced_ground_penalty(S64) if one_to_all else 0.0
+
+    active = np.ones(npts, bool)
+    for i in range(npts):
+        same_comp = (comp_of == comp_of[i]) & (comp_of >= 0)
+        same_comp[i] = False
+        if not same_comp.any():
+            active[i] = False
+
+    res = np.full(npts, -1.0)
+    cum = out.initialize_cum_maps(gmap, of.write_max_cur_maps)
+    idx_active = np.nonzero(active)[0]
+
+    if not one_to_all:
+        # component label per cell of the padded grid, for the pin
+        lab = np.zeros((Hp, Wp), np.int64)
+        rr_, cc2 = np.nonzero(nodemap)
+        node_lab = np.zeros(int(nodemap.max()) + 1, np.int64)
+        for ci_, comp_ in enumerate(comps):
+            node_lab[np.asarray(comp_)] = ci_ + 1
+        lab[rr_, cc2] = node_lab[nodemap[rr_, cc2]]
+        labels_dev = torch.as_tensor(lab, device=dev)
+
+    # byte-budgeted column chunks, ~8 live f64 (B, H, W) blocks a column;
+    # the max_parallel cap, then the power-of-two floor, in that order
+    per_col = Hp * Wp * 8 * 8
+    budget = solve_chunk_budget(Hp * Wp, dev,
+                                env_var="CS_ONETOALL_CHUNK_BYTES")
+    step = max(1, min(4096, budget // max(per_col, 1)))
+    if getattr(cfg, "max_parallel", 0) > 0:
+        step = min(step, cfg.max_parallel)
+    step = pow2_floor(step)
+    arange = np.arange(npts)
+
+    for s0 in range(0, idx_active.size, step):
+        sel = idx_active[s0:s0 + step]
+        bsz = len(sel)
+        src_cells = np.zeros((bsz, npts, 2), np.int64)
+        src_vals = np.zeros((bsz, npts), np.float64)
+        gnd_cells = np.tile(cells[None], (bsz, 1, 1))
+        gnd_vals = np.zeros((bsz, npts), np.float64)
+        for k, i in enumerate(sel):
+            if one_to_all:
+                src_cells[k, 0] = cells[i]
+                src_vals[k, 0] = strength[i]
+                gnd_vals[k] = np.where(arange != i, penalty, 0.0)
+            else:
+                others = (comp_of == comp_of[i]) & (comp_of >= 0)
+                others[i] = False
+                src_cells[k] = cells
+                vals = np.where(others, strength, 0.0)
+                vals[i] = -vals.sum()      # balanced floating injection
+                src_vals[k] = vals
+
+        t0 = time.perf_counter()
+        try:
+            with CSTIMER("batched pair solve"):
+                X, rel, iters = stencil_solve_advanced_batch(
+                    S64, src_cells, src_vals, gnd_cells, gnd_vals,
+                    rtol=consts.CG_RTOL, itmax=consts.CG_ITMAX, prec=prec,
+                    prec_apply=geomg_apply, proj=proj, A_lo=A_lo)
+        except Exception as e:
+            reraise_if_device_oom(e, Hp * Wp, bsz)
+        stats.record_solve(tuple(X.shape), iters, time.perf_counter() - t0)
+        if np.any(rel >= consts.RESIDUAL_GATE):
+            raise SolverFailedError(
+                f"one-to-all device solve residual {float(rel.max())} "
+                f"exceeds tolerance {consts.RESIDUAL_GATE}")
+
+        own = torch.as_tensor(cells[sel], device=dev)
+        ks = torch.arange(bsz, device=dev)
+        if not one_to_all:
+            # pin each column's ground cell to 0 within its component (a
+            # constant shift changes no flow; other components keep the
+            # reference's 0)
+            shifts = X[ks, own[:, 0], own[:, 1]]
+            col_lab = torch.as_tensor([comp_of[i] + 1 for i in sel],
+                                      device=dev)
+            X = torch.where(labels_dev[None] == col_lab[:, None, None],
+                            X - shifts[:, None, None], 0.0)
+        vals = X[ks, own[:, 0], own[:, 1]].cpu().numpy()
+        for k, i in enumerate(sel):
+            if one_to_all:
+                v = vals[k] / strength[i]
+                res[i] = -1.0 if v == 0 else v
+            else:
+                res[i] = 0.0
+
+        if of.write_cur_maps or of.write_cum_cur_map_only:
+            with CSTIMER("node currents + reduce"):
+                ncur = stencil_node_currents(S64, X, proj=proj)
+                if of.write_cur_maps:
+                    cum.cum_curr += torch.sum(ncur, dim=0).cpu().numpy()[
+                        :H, :W]
+                    if of.write_max_cur_maps:
+                        np.maximum(cum.max_curr,
+                                   torch.amax(ncur, dim=0).cpu().numpy()[
+                                       :H, :W], out=cum.max_curr)
+                ncur_h = ncur.cpu().numpy()
+            with CSTIMER("write maps"):
+                for k, i in enumerate(sel):
+                    out.write_grid(ncur_h[k].astype(dtype)[:H, :W],
+                                   f"_{int(pts[i])}", cfg, hbmeta,
+                                   cellmap=gmap)
+        if of.write_volt_maps:
+            X_h = X.cpu().numpy()
+            with CSTIMER("write maps"):
+                for k, i in enumerate(sel):
+                    out.write_grid(X_h[k].astype(dtype)[:H, :W],
+                                   f"_{int(pts[i])}", cfg, hbmeta,
+                                   cellmap=gmap, voltage=True)
+
+    if of.write_cur_maps or of.write_cum_cur_map_only:
+        with CSTIMER("write cumulative current maps"):
+            out.write_cum_maps(cum, gmap, cfg, hbmeta, of.write_max_cur_maps,
+                               of.write_cum_cur_map_only)
+
+    return np.column_stack([np.asarray(pts, dtype), res.astype(dtype)])
+
+
+def onetoall_kernel(data, flags, cfg, dtype, device):
+    """src/raster/onetoall.jl:13-167 on the stencil device path; where
+    the JAX package's device path declines, its per-point loop needs the
+    general sparse-graph tier, which is not carried yet."""
+    fast = _onetoall_device_fast(data, flags, cfg, dtype, device)
+    if fast is None:
+        raise NotImplementedError(
+            f"this {cfg.scenario} job (included pairs, repeated or merged "
+            "focal points, a solver other than cg+amg, or a grid below "
+            "CS_ONETOALL_DEVICE_MIN cells) takes the JAX package's per-point "
+            "general sparse-graph path, which is not carried by "
+            "circuitscape_tpu_torch yet (ROADMAP queue 1 item 9)")
+    return fast

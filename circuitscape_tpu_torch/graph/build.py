@@ -5,8 +5,9 @@ Parity reference: src/raster/pairwise.jl:271-362 (construct_node_map,
 relabel!, construct_graph), src/core.jl:608-634 (laplacian!).
 
 Counterpart of circuitscape_tpu/graph/build.py, with create_new_polymap
-(the per-pair focal-region map, src/raster/pairwise.jl:369-442) and
-components (src/core.jl connected components).
+(the per-pair focal-region map and the one-to-all point map,
+src/raster/pairwise.jl:369-442) and components (src/core.jl connected
+components).
 
 Design notes: the raster-to-graph step is a stencil, so edge assembly is
 done with whole-array shifted-plane operations (4 directed neighbor
@@ -168,15 +169,38 @@ def components(a: sp.spmatrix):
 
 
 def create_new_polymap(gmap: np.ndarray, polymap: np.ndarray, points_rc,
-                       pt1=0, pt2=0) -> np.ndarray:
-    """Merge the focal regions pt1 and pt2 into the polygon map
-    (src/raster/pairwise.jl:369-442, the pairwise form: a region of
-    several cells becomes one polygon, joined with any polygon it
-    overlaps)."""
+                       pt1=0, pt2=0, point_map=None) -> np.ndarray:
+    """Merge focal points or regions into the polygon map
+    (src/raster/pairwise.jl:369-442).  The pairwise form merges the focal
+    regions pt1 and pt2: a region of several cells becomes one polygon,
+    joined with any polygon it overlaps.  Given a point_map (one-to-all
+    and all-to-one), every focal cell outside a polygon becomes a polygon
+    of its own (id point + max polygon id), and a focal region that
+    overlaps polygons takes them over."""
     rows, cols, pts = points_rc
 
     def cell(x):
         return (int(rows[x]) - 1, int(cols[x]) - 1)
+
+    if point_map is not None and point_map.size:
+        if polymap.size == 0:
+            return point_map.copy()
+        newpoly = polymap.copy()
+        if len(pts) == len(np.unique(pts)):
+            k = polymap.max()
+            for c, r in zip(*np.nonzero(point_map.T)):   # column-major
+                if polymap[r, c] == 0:
+                    newpoly[r, c] = point_map[r, c] + k
+        else:
+            k = max(polymap.max(), point_map.max())
+            for c, r in zip(*np.nonzero(point_map.T)):
+                v1 = point_map[r, c]
+                v2 = newpoly[r, c]
+                if v2 == 0:
+                    newpoly[r, c] = k + v1
+                elif v1 != v2:
+                    newpoly[newpoly == v2] = v1
+        return newpoly
 
     if polymap.size == 0:
         newpoly = np.zeros(gmap.shape, np.int64)

@@ -1,9 +1,9 @@
-"""Input data loaders: cell maps, polygons, focal points,
-include/exclude pairs.
+"""Input data loaders: cell maps, polygons, focal points, advanced-mode
+source/ground maps, include/exclude pairs.
 
-Counterpart of circuitscape_tpu/io/loaders.py, reduced to what raster
-pairwise needs; network edge lists and advanced-mode source/ground maps
-are not carried yet (ROADMAP queue 1 items 8 and 9).
+Counterpart of circuitscape_tpu/io/loaders.py, reduced to what the
+raster scenarios need; network edge lists are not carried yet (ROADMAP
+queue 1 item 9).
 Parity reference: src/io.jl:1-556.  Conventions preserved from the
 reference: node maps use 0 for "no node" and 1-based node numbers;
 points_rc holds 1-based (row, col, point_id) triples; -9999 is the
@@ -157,6 +157,73 @@ def read_point_map(path: str, habitatmeta: RasterMeta):
     return i, j, v.astype(np.int64)
 
 
+def _txt_list_reader(path: str, habitatmeta: RasterMeta, dtype=np.float64):
+    """(value, x, y) list -> (value, row, col), 1-based (src/io.jl:315-326)."""
+    points = _readdlm(path, dtype)
+    out = np.zeros_like(points)
+    try:
+        out[:, 0] = points[:, 0]
+        out[:, 1] = np.ceil(habitatmeta.nrows -
+                            (points[:, 2] - habitatmeta.yllcorner)
+                            / habitatmeta.cellsize)
+        out[:, 2] = np.ceil((points[:, 1] - habitatmeta.xllcorner)
+                            / habitatmeta.cellsize)
+    except Exception as e:
+        raise ValueError(
+            "Error extracting locations from text list file") from e
+    return out
+
+
+def read_source_and_ground_maps(source_file: str, ground_file: str,
+                                habitatmeta: RasterMeta, is_res: bool, cfg,
+                                dtype=np.float64):
+    """Advanced-mode source/ground maps (src/io.jl:252-313): grids or
+    (value, x, y) lists; resistance grounds invert to conductances, with
+    1/0 = inf marking a direct ground."""
+    ftype = guess_file_type(ground_file)
+    if ftype in (consts.FILE_TYPE_AAGRID, consts.FILE_TYPE_GEOTIFF,
+                 consts.FILE_TYPE_NPY):
+        ground_map = read_polymap(ground_file, habitatmeta, nodata_as=-1,
+                                  dtype=None).astype(dtype)
+    elif ftype == consts.FILE_TYPE_TXTLIST:
+        rc = _txt_list_reader(ground_file, habitatmeta, dtype)
+        ground_map = np.full((habitatmeta.nrows, habitatmeta.ncols),
+                             consts.NODATA, dtype)
+        for v, x, y in rc:
+            ground_map[int(x) - 1, int(y) - 1] = v
+    else:
+        raise ValueError("Cannot recognise file type.")
+
+    ftype = guess_file_type(source_file)
+    if ftype in (consts.FILE_TYPE_AAGRID, consts.FILE_TYPE_GEOTIFF,
+                 consts.FILE_TYPE_NPY):
+        source_map = read_polymap(source_file, habitatmeta,
+                                  dtype=None).astype(dtype)
+        source_map[source_map == consts.NODATA] = 0
+    elif ftype == consts.FILE_TYPE_TXTLIST:
+        rc = _txt_list_reader(source_file, habitatmeta, dtype)
+        source_map = np.zeros((habitatmeta.nrows, habitatmeta.ncols), dtype)
+        for v, x, y in rc:
+            source_map[int(x) - 1, int(y) - 1] = v
+    else:
+        raise ValueError("Cannot recognize file type.")
+
+    if is_res:
+        nodata_mask = ground_map == consts.NODATA
+        with np.errstate(divide="ignore"):
+            ground_map = 1.0 / ground_map
+        ground_map[nodata_mask] = 0
+    else:
+        ground_map[ground_map == consts.NODATA] = 0
+
+    if cfg.use_unit_currents:
+        source_map[source_map != 0] = 1
+    if cfg.use_direct_grounds:
+        ground_map[ground_map != 0] = np.inf
+
+    return source_map, ground_map
+
+
 def read_included_pairs(path: str) -> IncludeExcludePairs:
     """Include/exclude pairs reader, both formats (src/io.jl:328-385)."""
     filetype = guess_file_type(path)
@@ -235,11 +302,12 @@ def load_raster_data(cfg, dtype=np.float64) -> RasterData:
         points_rc = (np.zeros(0, np.int64),) * 3
 
     if is_advanced:
-        raise NotImplementedError(
-            "advanced mode is not carried by circuitscape_tpu_torch yet "
-            "(ROADMAP queue 1 item 8)")
-    source_map = np.zeros((0, 0), dtype)
-    ground_map = np.zeros((0, 0), dtype)
+        source_map, ground_map = read_source_and_ground_maps(
+            cfg.source_file, cfg.ground_file, hbmeta,
+            cfg.ground_file_is_resistances, cfg, dtype)
+    else:
+        source_map = np.zeros((0, 0), dtype)
+        ground_map = np.zeros((0, 0), dtype)
 
     if cfg.use_included_pairs:
         included_pairs = read_included_pairs(cfg.included_pairs_file)

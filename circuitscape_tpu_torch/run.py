@@ -61,14 +61,16 @@ def _run(cfg: CSConfig, device: torch.device):
 
 def _compute(cfg: CSConfig, dtype, device):
     """src/run.jl:47-67, for the scenarios this package carries."""
+    from .drivers.advanced import raster_advanced
+    from .drivers.onetoall import raster_one_to_all
     from .drivers.raster import raster_pairwise
 
     if cfg.data_type != "raster":
         raise NotImplementedError(
             "network jobs are not carried by circuitscape_tpu_torch yet "
             "(ROADMAP queue 1 item 9)")
-    if cfg.scenario != "pairwise":
-        raise NotImplementedError(
-            f"raster {cfg.scenario} is not carried by circuitscape_tpu_torch "
-            "yet (ROADMAP queue 1 item 8)")
-    return raster_pairwise(cfg, dtype, device)
+    if cfg.scenario == "pairwise":
+        return raster_pairwise(cfg, dtype, device)
+    if cfg.scenario == "advanced":
+        return raster_advanced(cfg, dtype, device)
+    return raster_one_to_all(cfg, dtype, device)

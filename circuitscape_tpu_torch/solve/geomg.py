@@ -160,13 +160,32 @@ def _lam_device(A: StencilOperator, inv, iters=12) -> torch.Tensor:
                                                   device=lam.device))
 
 
-def _build_levels_device(we, ws, wse, wne, nlevels, est_mask):
+def _coarsen_pen_torch(p: torch.Tensor) -> torch.Tensor:
+    """2x2 patch sum of a diagonal (penalty) field, the exact Galerkin
+    coarse diagonal P^T diag(p) P for the piecewise-constant 2x2
+    prolongator (counterpart of geomg._coarsen_pen_jnp); odd dims pad
+    with zeros.  Each patch adds in the window's row-major order, as
+    XLA's reduce_window does, so the float32 sums agree to the bit."""
+    H, W = p.shape
+    if H % 2 or W % 2:
+        p = F.pad(p, (0, W % 2, 0, H % 2))
+    return ((p[0::2, 0::2] + p[0::2, 1::2]) + p[1::2, 0::2]) + p[1::2, 1::2]
+
+
+def _build_levels_device(we, ws, wse, wne, nlevels, est_mask, pen=None):
     """Per-level coarsening, diagonals and Chebyshev lam estimates on
-    the device.  Returns ([(A, inv_diag)] per level, lams (nlevels,)
-    device tensor or None, coarsest (we, ws, wse, wne))."""
+    the device.  pen: an optional (H, W) diagonal (ground) field, added
+    to every level's diagonal and coarsened by 2x2 patch sums, so each
+    level is the Galerkin coarse version of L + diag(pen) (advanced
+    grounds; without it the V-cycle would precondition the floating
+    Laplacian, whose near-null constant mode the grounded operator does
+    not share).  Returns ([(A, inv_diag)] per level, lams (nlevels,)
+    device tensor or None, coarsest (we, ws, wse, wne, pen or None))."""
     out, lams = [], []
     for lvl in range(nlevels):
         diag = _diag_from_planes_torch(we, ws, wse, wne)
+        if pen is not None:
+            diag = diag + pen
         inv = torch.where(diag > 0,
                           1.0 / torch.where(diag == 0, 1.0, diag), 0.0)
         A = StencilOperator(*(p.contiguous()
@@ -175,12 +194,15 @@ def _build_levels_device(we, ws, wse, wne, nlevels, est_mask):
                     torch.tensor(2.0, dtype=diag.dtype, device=diag.device))
         out.append((A, inv.contiguous()))
         we, ws, wse, wne = _coarsen_planes_torch(we, ws, wse, wne)
-    return out, torch.stack(lams) if lams else None, (we, ws, wse, wne)
+        if pen is not None:
+            pen = _coarsen_pen_torch(pen)
+    return (out, torch.stack(lams) if lams else None,
+            (we, ws, wse, wne, pen))
 
 
 def build_geo_mg_device(S32: StencilOperator, coarse_cells=256,
-                        max_levels=12,
-                        fused_smoother=True) -> GeoMgHierarchy:
+                        max_levels=12, fused_smoother=True,
+                        pen=None) -> GeoMgHierarchy:
     """Hierarchy setup on the device from the (already uploaded) f32
     fine operator; only the per-level lams and the tiny coarsest planes
     (<= coarse_cells) go to the host, where the dense pseudo-inverse
@@ -190,6 +212,10 @@ def build_geo_mg_device(S32: StencilOperator, coarse_cells=256,
     on, the levels fused_smoother_supported() admits take the
     premultiplied-Dinv smoother kernels; off, every level takes the
     generic configuration.
+
+    pen: an optional float32 (H, W) ground field baked into every level
+    (_build_levels_device) and into the coarse dense Laplacian's
+    diagonal; the fine level's operator is then the f32 L + diag(pen).
 
     Levels above 64k cells use the Gershgorin-safe lam = 2.0 (for a
     graph Laplacian rho(D^-1 L) <= 2); smaller levels power-iterate."""
@@ -202,11 +228,13 @@ def build_geo_mg_device(S32: StencilOperator, coarse_cells=256,
     est_mask = tuple(h * w <= 65536 for (h, w) in shapes)
 
     levels_raw, lams_dev, coarsest = _build_levels_device(
-        S32.we, S32.ws, S32.wse, S32.wne, len(shapes), est_mask)
-    # one host fetch for the lams and the coarsest planes
+        S32.we, S32.ws, S32.wse, S32.wne, len(shapes), est_mask, pen)
+    cpen = coarsest[4]
+    planes = coarsest[:4] + ((cpen,) if cpen is not None else ())
+    # one host fetch for the lams, the coarsest planes and their pen
     packed = torch.cat(
         ([lams_dev.to(torch.float64)] if lams_dev is not None else []) +
-        [torch.stack(coarsest).to(torch.float64).ravel()]).cpu().numpy()
+        [torch.stack(planes).to(torch.float64).ravel()]).cpu().numpy()
     lams = packed[:len(shapes)]
     levels = tuple(GeoMgLevel(A, inv, float(lam),
                               fused_smoother and
@@ -214,8 +242,10 @@ def build_geo_mg_device(S32: StencilOperator, coarse_cells=256,
                    for (A, inv), lam in zip(levels_raw, lams))
 
     hc, wc = coarsest[0].shape
-    cwe, cws, cwse, cwne = packed[len(shapes):].reshape(4, hc, wc)
-    dense = _dense_laplacian(cwe, cws, cwse, cwne)
+    cplanes = packed[len(shapes):].reshape(len(planes), hc, wc)
+    dense = _dense_laplacian(*cplanes[:4])
+    if cpen is not None:
+        dense[np.diag_indices_from(dense)] += cplanes[4].ravel()
     # benign identity on empty (all-inactive) coarse cells
     empty = dense.diagonal() == 0
     dense[empty, empty] = 1.0

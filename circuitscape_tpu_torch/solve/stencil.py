@@ -1,6 +1,7 @@
 """Stencil operator: the grid form of a raster graph Laplacian, in torch.
 
-Counterpart of circuitscape_tpu/solve/stencil.py (main-path subset).  A
+Counterpart of circuitscape_tpu/solve/stencil.py (the single-device
+solves: pairs, and the batched grounds of advanced and one-to-all).  A
 raster habitat map produces a graph whose every node touches at most 8
 fixed neighbors; the Laplacian is held as 4 directed weight planes
 (E, S, SE, NE) over the (H, W) grid plus a diagonal plane, and the
@@ -400,32 +401,49 @@ def stencil_node_currents(A: StencilOperator, V: torch.Tensor,
     return torch.maximum(inflow, outflow)
 
 
-def _apply_op(A: StencilOperator, x: torch.Tensor, proj=None):
-    """L x, projected when a polygon projector is given (x lies in
+def _apply_op(A: StencilOperator, x: torch.Tensor, pen=None, proj=None):
+    """L x, plus pen * x with a per-column diagonal penalty field
+    (B, H, W) (the batched grounds of the advanced and one-to-all
+    solves), projected when a polygon projector is given (x lies in
     range(Pi), so projecting the output keeps the iteration on the
     collapsed system).  A float32 block goes through the matvec kernel,
     a float64 one (the refinement residuals) through stencil_matvec."""
     from .cuda_stencil import matvec
     y = matvec(A, x) if x.dtype == torch.float32 else stencil_matvec(A, x)
+    if pen is not None:
+        y = y + pen * x
     return y if proj is None else poly_project(proj, y)
 
 
-def _make_prec_apply(A, prec, prec_apply, proj=None):
+def _make_prec_apply(A, prec, prec_apply, pen=None, proj=None):
     """Preconditioner application shared by the CG init and loop (they
     must apply the IDENTICAL operator for CG to be valid); Jacobi when
-    no hierarchy is given.  Under a projector it is Pi M Pi, SPD on
-    range(Pi) (inputs already lie there, so only the output is
-    projected)."""
+    no hierarchy is given.
+
+    With a penalty field it is the SPD combination P M0^-1 P + D_pen:
+    the base preconditioner on the non-penalized cells and exact
+    diagonal inversion on the penalized ones (complementary subspaces).
+    Under a projector it is Pi M Pi, SPD on range(Pi) (inputs already
+    lie there, so only the output is projected)."""
+    if pen is not None:
+        full_diag = A.diag[None] + pen
+        inv_pen = torch.where(full_diag > 0,
+                              1.0 / torch.where(full_diag == 0, 1.0,
+                                                full_diag), 1.0)
     if prec_apply is None:
         inv_diag = torch.where(A.diag > 0,
                                1.0 / torch.where(A.diag == 0, 1.0, A.diag),
                                1.0)
 
         def base(r):
-            return inv_diag[None] * r
-    else:
+            return (inv_diag[None] if pen is None else inv_pen) * r
+    elif pen is None:
         def base(r):
             return prec_apply(prec, r)
+    else:
+        def base(r):
+            z = prec_apply(prec, torch.where(pen > 0, 0.0, r))
+            return torch.where(pen > 0, r * inv_pen, z)
     if proj is None:
         return base
     return lambda r: poly_project(proj, base(r))
@@ -468,8 +486,8 @@ def _cg_improved(worst: np.floating, best: np.floating) -> bool:
 
 
 def _cg_state_init(A: StencilOperator, B: torch.Tensor, prec=None,
-                   prec_apply=None, proj=None) -> CGState:
-    Z = _make_prec_apply(A, prec, prec_apply, proj)(B)
+                   prec_apply=None, pen=None, proj=None) -> CGState:
+    Z = _make_prec_apply(A, prec, prec_apply, pen, proj)(B)
     R = B
     ftype = {torch.float32: np.float32, torch.float64: np.float64}[B.dtype]
     # rn2 (per-column ||R||^2) rides the state so neither the loop
@@ -480,7 +498,7 @@ def _cg_state_init(A: StencilOperator, B: torch.Tensor, prec=None,
 
 def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
              safe_bnorm, k_stop: int, itmax: int, prec=None,
-             prec_apply=None, proj=None) -> CGState:
+             prec_apply=None, pen=None, proj=None) -> CGState:
     """Preconditioned CG until convergence, stall, itmax, or k_stop (the
     per-call step budget of the chunked driver).
 
@@ -493,11 +511,12 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
     loop does (_cg_bounded, _cg_improved).  The matvec + p.Ap of the
     body is one kernel (cuda_stencil.matvec_pap), as is the
     true-residual replacement every 64 iterations (cuda_stencil.matvec).
-    Under a projector the body is the composite Pi L p (the matvec
-    kernel, then poly_project) and a column dot, as in the JAX loop."""
+    Under a penalty field or a projector the body is the composite
+    Pi (L + pen) p (the matvec kernel, the penalty term, poly_project)
+    and a column dot, as in the JAX loop."""
     from .cuda_stencil import matvec_pap
 
-    apply_M = _make_prec_apply(A, prec, prec_apply, proj)
+    apply_M = _make_prec_apply(A, prec, prec_apply, pen, proj)
     X, R, Z, P, rz, k, best, since, rn2 = state
     ftype = type(best)
 
@@ -512,10 +531,10 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
     worst, active = stop_quantities(rn2)
     while (k < itmax and k < k_stop and since < 50 and
            _cg_bounded(worst, best) and active):
-        if proj is None:
+        if pen is None and proj is None:
             AP, pAp = matvec_pap(A, P)
         else:
-            AP = _apply_op(A, P, proj)
+            AP = _apply_op(A, P, pen, proj)
             pAp = _colsum(P * AP)
         alpha = torch.where(pAp > 0, rz / torch.where(pAp == 0, 1.0, pAp),
                             0.0)
@@ -524,7 +543,7 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
             # periodic residual replacement: recompute the true residual
             # so the f32 recurrence cannot drift away from it (van der
             # Vorst); costs 1 extra matvec every 64 iterations
-            R = B - _apply_op(A, X, proj)
+            R = B - _apply_op(A, X, pen, proj)
         else:
             R = R - alpha[:, None, None] * AP
         Z = apply_M(R)
@@ -543,7 +562,9 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
 
 
 def _true_relres(A, B, X, safe_bnorm, proj=None):
-    R = B - _apply_op(A, X, proj)
+    """The bare operator's relative residual, without any penalty field,
+    as the JAX package computes it."""
+    R = B - _apply_op(A, X, None, proj)
     return torch.sqrt(_colsum(R * R)) / safe_bnorm
 
 
@@ -564,7 +585,7 @@ def _cg_tol(rtol, bnorm: torch.Tensor) -> torch.Tensor:
 
 def stencil_cg(A: StencilOperator, B: torch.Tensor, rtol=1e-6,
                itmax=100_000, chunk=512, prec=None, prec_apply=None,
-               proj=None):
+               pen=None, proj=None):
     """Chunked preconditioned-CG driver: the loop runs in bursts of
     `chunk` iterations with a progress check between bursts; a burst
     that makes no progress (stall at the f32 floor or the divergence
@@ -577,11 +598,11 @@ def stencil_cg(A: StencilOperator, B: torch.Tensor, rtol=1e-6,
     safe_bnorm = torch.where(bnorm == 0, 1.0, bnorm)
     tol = _cg_tol(rtol, bnorm)
 
-    state = _cg_state_init(A, B, prec, prec_apply, proj)
+    state = _cg_state_init(A, B, prec, prec_apply, pen, proj)
     k_prev = -1
     while True:
         state = _cg_loop(A, B, state, tol, safe_bnorm, state.k + chunk,
-                         itmax, prec, prec_apply, proj)
+                         itmax, prec, prec_apply, pen, proj)
         k = state.k
         resnorm = torch.sqrt(state.rn2)
         if (k >= itmax or k == k_prev or
@@ -662,11 +683,11 @@ def _solve_pairs_fused(S64, A_lo, prec, prec_apply, sc, dc, point_cells,
         tol32 = torch.maximum(
             tol64, INNER_RTOL * torch.sqrt(_colsum(R32 * R32))
         ).to(torch.float32)
-        st = _cg_state_init(A_lo, R32, prec, prec_apply, proj)
+        st = _cg_state_init(A_lo, R32, prec, prec_apply, None, proj)
         st = _cg_loop(A_lo, R32, st, tol32, safe32, kcap, kcap, prec,
-                      prec_apply, proj)
+                      prec_apply, None, proj)
         X = X + st.X.to(torch.float64)
-        R = B64 - _apply_op(S64, X, proj)
+        R = B64 - _apply_op(S64, X, None, proj)
         rel = torch.sqrt(_colsum(R * R)) / safe_bnorm
         iters += st.k
         npass += 1
@@ -726,7 +747,7 @@ def _fused_pair_solve(S64, src_cells, dst_cells, point_cells, rtol, itmax,
             B = poly_project(proj, B)
         bnorm = torch.sqrt(_colsum(B * B))
         safe_bnorm = torch.where(bnorm == 0, 1.0, bnorm).cpu().numpy()
-        R = B - _apply_op(S64, X, proj)
+        R = B - _apply_op(S64, X, None, proj)
         for _ in range(max_refine - 2):
             inner = np.clip(rtol / np.where(rel == 0, 1.0, rel),
                             INNER_RTOL, 0.05)
@@ -734,10 +755,105 @@ def _fused_pair_solve(S64, src_cells, dst_cells, point_cells, rtol, itmax,
                                    itmax=itmax, prec=prec,
                                    prec_apply=prec_apply, proj=proj)
             X = X + dX.to(torch.float64)
-            R = B - _apply_op(S64, X, proj)
+            R = B - _apply_op(S64, X, None, proj)
             rel = torch.sqrt(_colsum(R * R)).cpu().numpy() / safe_bnorm
             total_iters += int(it)
             if np.all(rel[:nb] <= rtol):
                 break
         Vp = _extract_point_voltages(X, sc, pc)[0].cpu().numpy()
     return X, Vp, rel, total_iters
+
+
+def _scatter_field(cells, vals, H: int, W: int) -> torch.Tensor:
+    """(B, K, 2) cells + (B, K) values -> (B, H, W) field, zero
+    elsewhere.  Padding entries sit at (0, 0) with value 0, and a real
+    entry may sit there too, so the scatter accumulates."""
+    B = cells.shape[0]
+    out = torch.zeros((B, H, W), dtype=vals.dtype, device=vals.device)
+    cols = torch.arange(B, device=cells.device)[:, None].expand(
+        cells.shape[:2])
+    out.index_put_((cols, cells[..., 0], cells[..., 1]), vals,
+                   accumulate=True)
+    return out
+
+
+def stencil_solve_advanced_batch(S64: StencilOperator, src_cells, src_vals,
+                                 gnd_cells, gnd_vals, rtol=1e-6,
+                                 itmax=100_000, prec=None, prec_apply=None,
+                                 max_refine=4, proj=None,
+                                 pen_in_prec=False, A_lo=None):
+    """Batched advanced-mode solve: (G + diag(g)) v = s per column.
+
+    Each column has its own sources (cells + strengths) and grounds
+    (cells + conductances); a direct ground is a penalty conductance
+    (advanced_ground_penalty), whose cell then holds a voltage of
+    O(1/penalty), as the reference's row/column deletion
+    (src/raster/advanced.jl:282-304) holds 0.  Mixed precision as in
+    the pair solve: float32 inner CG passes at INNER_RTOL or above, a
+    float64 outer residual of S64 + pen.
+
+    src_cells/gnd_cells: (B, K, 2) int arrays (pad with (0, 0) and value
+    0); src_vals/gnd_vals: (B, K) float64.
+
+    pen_in_prec: the hierarchy has the ground field baked into every
+    level (prepare_stencil_solver_from_gmap_pen), so its fine level is
+    the f32 (G + diag(g)) and the inner CG runs it with pen=None (its
+    body the fused matvec_pap).  A_lo: an explicit f32 inner operator:
+    one-to-all bakes the shared penalty (every focal cell) into the
+    hierarchy, but each column's operator is the bare Laplacian plus its
+    own penalty field.
+
+    Returns (X (f64, (B, H, W)), rel (np, B), iters)."""
+    H, W = S64.shape
+    dev = S64.diag.device
+
+    def field(cells, vals):
+        return _scatter_field(torch.as_tensor(np.asarray(cells, np.int64),
+                                              device=dev),
+                              torch.as_tensor(np.asarray(vals, np.float64),
+                                              device=dev), H, W)
+    B_rhs = field(src_cells, src_vals)
+    pen64 = field(gnd_cells, gnd_vals)
+    if proj is not None:
+        # collapsed-system RHS (per-cell values already sum to each
+        # merged node's total; Pi is applied for arbitrary callers)
+        B_rhs = poly_project(proj, B_rhs)
+    pen32 = pen64.to(torch.float32)
+
+    if A_lo is None:
+        if prec is not None and getattr(prec, "levels", ()):
+            A_lo = prec.levels[0].A   # the hierarchy's f32 fine level
+        else:
+            A_lo = _to_dtype(S64, torch.float32)
+    bnorm = torch.sqrt(_colsum(B_rhs * B_rhs))
+    safe_bnorm = torch.where(bnorm == 0, 1.0, bnorm).cpu().numpy()
+
+    X = torch.zeros_like(B_rhs)
+    R = B_rhs
+    total_iters = 0
+    rel = np.full(B_rhs.shape[0], np.inf)
+    for pass_i in range(max_refine):
+        # floor-safe inner tolerances: never ask an f32 pass for more
+        # than INNER_RTOL relative
+        inner = max(rtol, INNER_RTOL) if pass_i == 0 else np.clip(
+            rtol / np.where(rel == 0, 1.0, rel), INNER_RTOL, 0.05)
+        dX, _, it = stencil_cg(A_lo, R.to(torch.float32), inner,
+                               itmax=itmax, prec=prec,
+                               prec_apply=prec_apply,
+                               pen=None if pen_in_prec else pen32,
+                               proj=proj)
+        X = X + dX.to(torch.float64)
+        R = B_rhs - _apply_op(S64, X, pen64, proj)
+        rel = torch.sqrt(_colsum(R * R)).cpu().numpy() / safe_bnorm
+        total_iters += int(it)
+        if np.all(rel <= rtol):
+            break
+    return X, rel, total_iters
+
+
+def advanced_ground_penalty(S64: StencilOperator) -> float:
+    """Penalty conductance standing in for an infinite (direct) ground:
+    large enough that the residual ground voltage is far below the 1e-6
+    solve target, small enough to stay well-conditioned in f32 after
+    Jacobi scaling."""
+    return 1e8 * float(torch.max(S64.diag))

@@ -1,13 +1,17 @@
 """Where the time of the port's main path goes, on one NVIDIA GPU.
 
     python3 profile_torch.py [--size 1000] [--points 32] [--maps]
-                             [--polygons | --regions N] [--trace PATH]
+                             [--polygons | --regions N | --advanced |
+                              --one-to-all | --all-to-one] [--trace PATH]
 
 Runs the bench.py job (seed 42, size x size conductance raster with ~10%
 NODATA, `points` focal points, cg+amg, single precision, shortcut mode;
 with --maps, the cumulative and max current maps on, which solves every
 pair; with --polygons, chip_smoke.py's 20 short-circuit polygons; with
---regions N, its focal-region job with N regions on points 1..N)
+--regions N, its focal-region job with N regions on points 1..N; with
+--advanced, its advanced job on the 32 points: 16 sources, 8 finite and
+8 direct grounds, voltage and current maps; with --one-to-all or
+--all-to-one, that scenario on the points, maps off unless --maps)
 through circuitscape_tpu_torch.compute(..., "cuda"): one warm run, then
 one run under torch.profiler.  Prints, as JSON lines:
   - the job's wall time, host-timer sections and solver stats;
@@ -57,6 +61,12 @@ def main():
                     help="add chip_smoke.py's short-circuit polygons")
     ap.add_argument("--regions", type=int, default=0,
                     help="focal regions on the first N points instead")
+    ap.add_argument("--advanced", action="store_true",
+                    help="chip_smoke.py's advanced job instead")
+    ap.add_argument("--one-to-all", dest="scenario", action="store_const",
+                    const="one-to-all", default="pairwise")
+    ap.add_argument("--all-to-one", dest="scenario", action="store_const",
+                    const="all-to-one")
     ap.add_argument("--trace", default="",
                     help="write the Chrome trace to this path")
     args = ap.parse_args()
@@ -65,8 +75,8 @@ def main():
         return 2
 
     import circuitscape_tpu_torch as cst
-    from chip_smoke import (card_line, make_job, make_polygon_job,
-                            make_regions_job)
+    from chip_smoke import (card_line, make_advanced_job, make_job,
+                            make_polygon_job, make_regions_job)
     from circuitscape_tpu_torch import stats
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
     from circuitscape_tpu_torch.timer import CSTIMER
@@ -81,8 +91,11 @@ def main():
                                          args.points)
         elif args.regions:
             cfg = make_regions_job(d, args.size, args.size, args.regions)
+        elif args.advanced:
+            cfg, _, _, _ = make_advanced_job(d, args.size, args.size)
         else:
             cfg, _ = make_job(d, args.size, args.size, args.points)
+            cfg["scenario"] = args.scenario
         if args.maps:
             cfg.update(write_cum_cur_map_only="True",
                        write_max_cur_maps="True")
@@ -119,6 +132,8 @@ def main():
     print(json.dumps({"size": args.size, "points": args.points,
                       "maps": args.maps, "polygons": args.polygons,
                       "regions": args.regions,
+                      "scenario": "advanced" if args.advanced
+                      else args.scenario,
                       "wall_s": wall, "timers_s": timers,
                       "cg_iters": st.get("cg_iters"),
                       "solve_s": st.get("solve_s")}))

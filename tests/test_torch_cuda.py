@@ -172,3 +172,131 @@ def test_poly_project_repeats_and_matches_cpu(dev, per_column):
         a, b = fn(proj, x.to(dev)), fn(proj, x.to(dev))
         assert torch.equal(a, b)
         _close(a.cpu(), fn(ref, x))
+
+
+def _pen_grid(H, W, seed=4):
+    """A conductance map with 6 direct grounds (inf) and 6 finite ones."""
+    rng = np.random.default_rng(seed)
+    g = rng.uniform(0.5, 3.0, (H, W))
+    g[rng.random((H, W)) < 0.1] = 0.0
+    act = np.argwhere(g > 0)
+    pick = act[rng.choice(len(act), 12, replace=False)]
+    cond = np.zeros((H, W))
+    cond[pick[:6, 0], pick[:6, 1]] = np.inf
+    cond[pick[6:, 0], pick[6:, 1]] = 0.5
+    return g, cond
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_kernels_match_plain_on_pen_hierarchy(dev, B):
+    """Every kernel on every level of a penalty-baked hierarchy (ground
+    conductances up to 1e8 times the grid's in the diagonal), per cell:
+    |kernel - plain| <= TOL * (|plain| + max |plain| over unpenalized
+    cells); matvec_pap's p.Ap per column."""
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    from circuitscape_tpu_torch.solve.geomg import (_diag_from_planes_torch,
+                                                    _restrict)
+    from circuitscape_tpu_torch.solve.prepare import \
+        prepare_stencil_solver_from_gmap_pen
+    g, cond = _pen_grid(200, 230)
+    _, prec, _, _, _ = prepare_stencil_solver_from_gmap_pen(
+        g, False, False, cond, dev)
+    c, ca, cb = 0.8, 0.33, 1.07
+    for lvl, L in enumerate(prec.levels):
+        A, dinv, (H, W) = L.A, L.inv_diag, L.A.shape
+        pen = (A.diag - _diag_from_planes_torch(A.we, A.ws, A.wse,
+                                                A.wne)) > 0
+        assert pen.any()
+        coarse = _restrict(pen[None].float())[0] > 0
+        x, b, d = _blocks(B, H, W, dev, seed=lvl)
+        for got, ref in (
+                (cs.matvec(A, x), cs.matvec_plain(A, x)),
+                (cs.matvec_pap(A, x), cs.matvec_pap_plain(A, x)),
+                (cs.cheb_step(A, dinv, b, d, x, 0.37, 1.21),
+                 cs.cheb_step_plain(A, dinv, b, d, x, 0.37, 1.21)),
+                (cs.residual_restrict(A, b, x),
+                 cs.residual_restrict_plain(A, b, x)),
+                (cs.cheb_init(A, dinv, b, c, ca, cb),
+                 cs.cheb_init_plain(A, dinv, b, c, ca, cb)),
+                (cs.residual_init(A, dinv, b, x, c),
+                 cs.residual_init_plain(A, dinv, b, x, c)),
+                (cs.cheb_finish(A, dinv, b, x, c, ca, cb),
+                 cs.cheb_finish_plain(A, dinv, b, x, c, ca, cb))):
+            for g_, r_ in zip(got if isinstance(got, tuple) else (got,),
+                              ref if isinstance(ref, tuple) else (ref,)):
+                if r_.dim() == 1:
+                    scale = r_.abs()
+                else:
+                    m = pen if r_.shape[-2:] == (H, W) else coarse
+                    scale = r_.abs() + r_.abs()[:, ~m].max()
+                assert float(((g_ - r_).abs() / scale).max()) <= TOL, lvl
+
+
+def _scenario_job(d, scenario, H=256, W=256, npoints=8):
+    """A bench-recipe raster (~10% NODATA) with npoints focal points, as
+    NPY files in d, for scenario; advanced: points 1-3 sources of
+    strength 1-3, 4-5 finite grounds (resistance 2), 6-8 direct grounds,
+    voltage and current maps; all-to-one: per-point current maps."""
+    import os
+    rng = np.random.default_rng(42)
+    g = rng.uniform(0.5, 3.0, (H, W))
+    g[rng.random((H, W)) < 0.10] = -9999.0
+    pts = np.zeros((H, W))
+    placed = 0
+    while placed < npoints:
+        r, c = rng.integers(0, H), rng.integers(0, W)
+        if g[r, c] > 0 and pts[r, c] == 0:
+            placed += 1
+            pts[r, c] = placed
+    for name, a in (("cell", g), ("pts", pts)):
+        np.save(os.path.join(d, f"{name}.npy"), a)
+    cfg = {"data_type": "raster", "scenario": scenario,
+           "habitat_file": os.path.join(d, "cell.npy"),
+           "habitat_map_is_resistances": "False",
+           "point_file": os.path.join(d, "pts.npy"), "solver": "cg+amg",
+           "suppress_messages": "True"}
+    if scenario == "advanced":
+        gnd = np.full((H, W), -9999.0)
+        gnd[(pts >= 4) & (pts <= 5)] = 2.0
+        gnd[pts >= 6] = 0.0
+        np.save(os.path.join(d, "src.npy"), np.where(pts <= 3, pts, 0.0))
+        np.save(os.path.join(d, "gnd.npy"), gnd)
+        cfg.update(source_file=os.path.join(d, "src.npy"),
+                   ground_file=os.path.join(d, "gnd.npy"),
+                   ground_file_is_resistances="True",
+                   write_volt_maps="True", write_cur_maps="True")
+    elif scenario == "all-to-one":
+        cfg["write_cur_maps"] = "True"
+    return cfg
+
+
+@pytest.mark.parametrize("scenario", ["advanced", "one-to-all",
+                                      "all-to-one"])
+def test_scenario_cuda_matches_cpu(dev, tmp_path, scenario):
+    """The three scenarios at 256^2 on the card and on the CPU: results
+    within 1e-5 (of max |cpu| for the advanced voltage grid, per point
+    otherwise) and the same maps, each within 1e-5 of its max."""
+    import os
+
+    import circuitscape_tpu_torch as cst
+    cfg = _scenario_job(str(tmp_path), scenario)
+    out, files = {}, {}
+    for d in ("cuda", "cpu"):
+        od = tmp_path / d
+        od.mkdir()
+        out[d] = cst.compute(dict(cfg, output_file=str(od / "job.out")),
+                             device=dev if d == "cuda" else "cpu")
+        files[d] = sorted(f for f in os.listdir(od) if f.endswith(".asc"))
+    a, b = out["cuda"], out["cpu"]
+    assert a.shape == b.shape and np.all(np.isfinite(a))
+    if scenario == "advanced":
+        assert np.abs(a - b).max() <= TOL * np.abs(b).max()
+    else:
+        assert np.all(np.abs(a - b) <= TOL * np.abs(b))
+    assert files["cuda"] == files["cpu"]
+    assert len(files["cpu"]) == {"advanced": 2, "one-to-all": 0,
+                                 "all-to-one": 9}[scenario]
+    for f in files["cpu"]:
+        ga = np.loadtxt(tmp_path / "cuda" / f, skiprows=6)
+        gc = np.loadtxt(tmp_path / "cpu" / f, skiprows=6)
+        assert np.abs(ga - gc).max() <= TOL * np.abs(gc).max(), f
