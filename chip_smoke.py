@@ -80,7 +80,35 @@ Phases (any failure exits non-zero; nothing is caught):
      the same CG iteration count on both devices, the last four with
      each of the card's CG passes replayed on the CPU from its own
      inputs stopping within one iteration of the card's;
-  10. print the kernels line, the card line and, last, the result line.
+  10. drive the network pairwise job (make_network_job: the reference's
+     100,000-node lattice benchmark, 20 focal nodes, 190 pairs, cg+amg,
+     single precision, current files) on the general sparse-graph tier:
+     with CS_NETWORK_DIRECT_MAX=0 (ELL PCG with the SA-AMG V-cycle on the
+     card) a warm and a timed run, printing the CG iterations, AMG
+     levels, host-timer sections and peak device memory; then with the
+     default routing (the native Cholesky on the host) one run.
+     Resistances finite, symmetric, positive off the diagonal and within
+     1e-4 of a SciPy float64 solve of the same regularized system, 380
+     per-pair and 2 cumulative current files; the tiers' difference in
+     single precision printed (their regularizations differ), and in
+     double precision the tiers agreeing to 1e-4 (resistances relative,
+     one pair's node currents of their max); time
+     ell_matvec (torch ops, not a TPU kernel) at the job's fine level and
+     B = 256 beside its bound and a CSR torch.sparse.mm (held to 1e-5 of
+     max against it);
+  11. drive the network advanced job (make_network_advanced_job: 16
+     sources, 8 finite and 8 direct grounds, double precision) on the
+     card's iterative tier: the float64 residual of its voltages against scipy's Laplacian
+     of the edge list under 1e-4, and agreement with the direct tier to
+     1e-4 of max |v|;
+  12. (in phase 9) three general-tier jobs on "cuda" and on "cpu": a
+     10,000-node lattice network (forced iterative tier), a 150 x 150
+     raster maps job (below CS_PAIRWISE_DEVICE_MIN) and a 100 x 100
+     one-to-all job with included pairs (the per-point loop): results
+     to 1e-5 relative, every output file to 1e-5 of its max, and equal
+     CG iteration counts or each card pass, replayed on the CPU, within
+     one iteration;
+  13. print the kernels line, the card line and, last, the result line.
 
 Exits 2 without printing a result when no CUDA device is available.
 """
@@ -301,6 +329,66 @@ def make_onetoall_polygons(d, H, W, npoints=8, seed=42):
         poly[poly == pid] = 0
     np.save(cfg["polygon_file"], poly)
     return dict(cfg, scenario="one-to-all")
+
+
+def _lattice(d, n, seed):
+    """The reference's network benchmark graph (bench_suite.py:342-366):
+    n nodes, side int(sqrt(n)), an edge from node i to i + 1 and to
+    i + side wherever that node exists, conductances uniform(0.5, 3.0),
+    written 0-based to d/net.txt.  Returns (edges, weights, rng)."""
+    rng = np.random.default_rng(seed)
+    side = int(np.sqrt(n))
+    i0 = np.arange(n)
+    E = np.vstack([np.column_stack([i0[i0 + off < n], (i0 + off)[i0 + off < n]])
+                   for off in (1, side)])
+    w = rng.uniform(0.5, 3.0, len(E))
+    np.savetxt(os.path.join(d, "net.txt"), np.column_stack([E, w]),
+               fmt="%.6g")
+    return E, w, rng
+
+
+def make_network_job(d, n=100_000, nfocal=20, seed=42):
+    """The reference's network pairwise benchmark job: _lattice's graph,
+    nfocal focal nodes drawn without replacement (0-based file), cg+amg,
+    single precision, per-pair and cumulative current files.  Returns
+    the config dict."""
+    _, _, rng = _lattice(d, n, seed)
+    np.savetxt(os.path.join(d, "fp.txt"), rng.choice(n, nfocal,
+                                                     replace=False), fmt="%d")
+    return {"data_type": "network", "scenario": "pairwise",
+            "habitat_file": os.path.join(d, "net.txt"),
+            "habitat_map_is_resistances": "False",
+            "point_file": os.path.join(d, "fp.txt"),
+            "output_file": os.path.join(d, "n.out"),
+            "write_cur_maps": "True", "solver": "cg+amg",
+            "precision": "single", "suppress_messages": "True"}
+
+
+def make_network_advanced_job(d, n=100_000, seed=42):
+    """Network advanced on _lattice's graph: 16 source nodes (strengths
+    1-16) and 16 ground nodes, 8 finite (resistance 2) and 8 direct
+    (resistance 0), all distinct; voltages and currents written; cg+amg,
+    double precision (in single precision the direct tier's 10 eps
+    shift, a float32 leak to ground at every node, moves its voltages by
+    ~3e-4 of their max on a 10,000-node lattice).  Returns (config dict, edges, weights, sources,
+    grounds) with 0-based node ids."""
+    E, w, rng = _lattice(d, n, seed)
+    nodes = rng.choice(n, 32, replace=False)
+    src = np.column_stack([nodes[:16], np.arange(1, 17)])
+    gnd = np.column_stack([nodes[16:], np.r_[np.full(8, 2.0), np.zeros(8)]])
+    np.savetxt(os.path.join(d, "src.txt"), src, fmt="%.6g")
+    np.savetxt(os.path.join(d, "gnd.txt"), gnd, fmt="%.6g")
+    return {"data_type": "network", "scenario": "advanced",
+            "habitat_file": os.path.join(d, "net.txt"),
+            "habitat_map_is_resistances": "False",
+            "source_file": os.path.join(d, "src.txt"),
+            "ground_file": os.path.join(d, "gnd.txt"),
+            "ground_file_is_resistances": "True",
+            "remove_src_or_gnd": "keepall",
+            "output_file": os.path.join(d, "a.out"),
+            "write_volt_maps": "True", "write_cur_maps": "True",
+            "solver": "cg+amg", "precision": "double",
+            "suppress_messages": "True"}, E, w, src, gnd
 
 
 def check_resistances(r, label, n=32, merged=False):
@@ -654,18 +742,20 @@ def phase_pen_kernels(gmap, cond, dev):
 
 class record_passes:
     """Records the CG iteration count of every inner pass (a call of
-    mod.stencil_cg; by default this package's) while active, and with
-    keep=True the pass's arguments.  The port's tests use it on both
-    packages."""
+    mod.<fn>: by default this package's stencil_cg; with mod set to a
+    solve/dispatch module and fn="cg_batched", the general tier's ELL
+    CG) while active, and with keep=True the pass's arguments.  The
+    port's tests use it on both packages."""
 
-    def __init__(self, keep=False, mod=None):
-        self.keep, self.mod, self.iters, self.calls = keep, mod, [], []
+    def __init__(self, keep=False, mod=None, fn="stencil_cg"):
+        self.keep, self.mod, self.fn = keep, mod, fn
+        self.iters, self.calls = [], []
 
     def __enter__(self):
         if self.mod is None:
             from circuitscape_tpu_torch.solve import stencil as st
             self.mod = st
-        self.real = self.mod.stencil_cg
+        self.real = getattr(self.mod, self.fn)
 
         def rec(*a, **k):
             out = self.real(*a, **k)
@@ -673,11 +763,11 @@ class record_passes:
             if self.keep:
                 self.calls.append((a, k))
             return out
-        self.mod.stencil_cg = rec
+        setattr(self.mod, self.fn, rec)
         return self
 
     def __exit__(self, *exc):
-        self.mod.stencil_cg = self.real
+        setattr(self.mod, self.fn, self.real)
 
     def replay_on_cpu(self):
         """Each recorded pass rerun on the CPU (plain versions) from the
@@ -709,7 +799,6 @@ def run_job(cfg, label):
     import circuitscape_tpu_torch as cst
     from circuitscape_tpu_torch import stats
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
-    from circuitscape_tpu_torch.timer import CSTIMER
     torch.cuda.synchronize()
     cs.reset_launch_counts()
     with record_passes() as rp:
@@ -719,9 +808,7 @@ def run_job(cfg, label):
         dt = time.perf_counter() - t
     launches, launches_at = dict(cs.LAUNCHES), dict(cs.LAUNCHES_AT)
     iters = stats.finalize().get("cg_iters")
-    sections = {"/".join(p[1:]): round(tot, 4)
-                for p, (_, tot) in sorted(CSTIMER._data.items())
-                if len(p) > 1}
+    sections = _sections()
     at = ", ".join(f"{k} {H}x{W}: {n}" for (k, H, W), n in
                    sorted(launches_at.items()))
     note(f"{label} run: {dt:.3f} s, cg_iters {iters} (per pass "
@@ -1024,6 +1111,262 @@ def phase_maps(cfg, gmap, r_shortcut):
          f"{rel:.3e} relative; cumulative map max {cum.max():.6g}")
 
 
+class forced_iterative_tier:
+    """CS_NETWORK_DIRECT_MAX=0 while active: network cg+amg jobs run the
+    iterative tier (ELL PCG with the SA-AMG V-cycle on the job's device)
+    instead of routing to the native Cholesky."""
+
+    def __enter__(self):
+        self.old = os.environ.get("CS_NETWORK_DIRECT_MAX")
+        os.environ["CS_NETWORK_DIRECT_MAX"] = "0"
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ["CS_NETWORK_DIRECT_MAX"]
+        else:
+            os.environ["CS_NETWORK_DIRECT_MAX"] = self.old
+
+
+def _sections():
+    from circuitscape_tpu_torch.timer import CSTIMER
+    return {"/".join(p[1:]): round(tot, 4)
+            for p, (_, tot) in sorted(CSTIMER._data.items()) if len(p) > 1}
+
+
+def run_general(cfg, od, dev, label, keep=False):
+    """One job on dev with outputs in od (prefix "n"), recording the
+    general tier's CG passes; returns (result, seconds, CG iterations per
+    pass, the record_passes object)."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch.solve import dispatch
+    os.makedirs(od)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    with record_passes(keep=keep, mod=dispatch, fn="cg_batched") as rp:
+        t = time.perf_counter()
+        r = cst.compute(dict(cfg, output_file=os.path.join(od, "n.out")),
+                        device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    note(f"{label}: {dt:.3f} s, CG iterations per pass {rp.iters}, "
+         f"sections {_sections()}")
+    return r, dt, rp.iters, rp
+
+
+def _network_reference(cfg, dtype):
+    """Resistances between every pair of the network job's focal nodes,
+    solved in float64 by SciPy (independent of the port) on the system
+    the iterative tier solves in dtype: the job's Laplacian with eps *
+    ||entries|| added to every stored entry (the reference's
+    regularization, src/core.jl:161, with dtype's eps)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    g = np.loadtxt(cfg["habitat_file"], ndmin=2)
+    i, j = g[:, 0].astype(np.int64), g[:, 1].astype(np.int64)
+    n = int(max(i.max(), j.max())) + 1
+    A = sp.coo_matrix((g[:, 2].astype(dtype), (i, j)), shape=(n, n)).tocsr()
+    A = (A + A.T).tocsr()
+    L = (sp.diags(np.asarray(A.sum(axis=1)).ravel().astype(dtype)) -
+         A).tocsr()
+    L.data = L.data + np.finfo(dtype).eps * np.linalg.norm(L.data)
+    solve = spla.factorized(L.astype(np.float64).tocsc())
+    fp = np.loadtxt(cfg["point_file"], ndmin=1).astype(np.int64)
+    # the focal file counts from 1 unless it holds a 0 (src/io.jl:74-82),
+    # whatever the edge list does
+    fp = fp if fp.min() == 0 else fp - 1
+    R = np.zeros((fp.size, fp.size))
+    for a in range(fp.size):
+        for b in range(a + 1, fp.size):
+            rhs = np.zeros(n)
+            rhs[fp[a]], rhs[fp[b]] = -1.0, 1.0
+            v = solve(rhs)
+            R[a, b] = R[b, a] = v[fp[b]] - v[fp[a]]
+    return R
+
+
+def phase_network(d, rate, dev_name, n=100_000):
+    """The network pairwise job (make_network_job: 100,000-node lattice,
+    20 focal nodes, 190 pairs in one block of 256 columns, single
+    precision).  On the forced iterative tier on "cuda": a warm and a
+    timed run, printing the CG iterations, AMG levels, host-timer
+    sections and peak device memory; its resistances finite, symmetric,
+    positive off the diagonal and within 1e-4 relative of an independent
+    float64 solve of the same regularized system (_network_reference);
+    380 per-pair and 2 cumulative current files.  With the default
+    routing (the native Cholesky on the host) one run; the two tiers'
+    difference is printed, not gated: in single precision the iterative
+    tier's regularization (float32 eps * ||entries|| on every entry, a
+    leak to ground at every node) and the direct tier's 10 eps shift
+    solve different systems.  In double precision, where both shifts
+    vanish, the two tiers agree to 1e-4 (resistances relative, one pair's
+    node currents of their max).  Then times ell_matvec at the job's fine
+    level (phase_ell).  Returns a summary dict."""
+    from circuitscape_tpu_torch.io import fastio
+    from circuitscape_tpu_torch.solve import native_chol
+    t = time.perf_counter()
+    libs = [os.path.basename(native_chol._load()._name),
+            os.path.basename(fastio.load()._name)]
+    note(f"native libraries {libs} built in "
+         f"{time.perf_counter() - t:.1f} s; Cholesky BLAS: "
+         f"{native_chol.BLAS or 'none (scalar engine)'}")
+    cfg = make_network_job(d, n=n)
+    with forced_iterative_tier():
+        run_general(cfg, os.path.join(d, "warm"), "cuda",
+                    "network job, forced iterative tier, warm run")
+        shutil.rmtree(os.path.join(d, "warm"))
+        torch.cuda.reset_peak_memory_stats()
+        r, dt, iters, rp = run_general(
+            cfg, os.path.join(d, "forced"), "cuda",
+            "network job, forced iterative tier", keep=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    secs = _sections()
+    A, B, prec = rp.calls[0][0][:3]
+    del rp
+    levels = [(L.A.n, L.A.n_pad, L.A.idx.shape[1]) for L in prec.levels]
+    setup = secs.get("solve pairwise resistances/construct "
+                     "preconditioner/factorization")
+    note(f"network job: AMG levels (n, n_pad, K) {levels}, coarse "
+         f"{tuple(prec.coarse_pinv.shape)}, block {tuple(B.shape)}, AMG "
+         f"setup {setup} s, peak device memory {peak:.3f} GiB")
+    del B, prec
+    check_resistances(r, "network job", n=20)
+    files = sorted(f for f in os.listdir(os.path.join(d, "forced"))
+                   if f.endswith(".txt"))
+    if len(files) != 2 * 190 + 2 or not {"n_node_currents_cum.txt",
+                                         "n_branch_currents_cum.txt"} <= \
+            set(files):
+        raise AssertionError(f"network job: wrote {len(files)} current "
+                             "files, expected 380 per-pair and 2 cumulative")
+    off = ~np.eye(20, dtype=bool)
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)[off] / np.abs(b)[off]))
+    ref = rel(r[1:, 1:], _network_reference(cfg, np.float32))
+    rd, dt_d, _, _ = run_general(cfg, os.path.join(d, "direct"), "cuda",
+                                 "network job, default routing (native "
+                                 "Cholesky)")
+    single = rel(r[1:, 1:], rd[1:, 1:])
+    note(f"network job: {dt:.3f} s forced iterative tier, {dt_d:.3f} s "
+         f"direct tier; iterative tier within {ref:.3e} relative of the "
+         f"float64 solve of its system; the tiers differ by {single:.3e} "
+         f"relative in single precision")
+    if not ref <= 1e-4:
+        raise AssertionError(f"network job: iterative tier {ref} relative "
+                             "from the float64 solve of its system")
+    for sub in ("forced", "direct"):
+        shutil.rmtree(os.path.join(d, sub))
+
+    dcfg = dict(cfg, precision="double")
+    with forced_iterative_tier():
+        r64, _, iters64, _ = run_general(
+            dcfg, os.path.join(d, "forced"), "cuda",
+            "network job, double precision, forced iterative tier")
+    rd64, _, _, _ = run_general(dcfg, os.path.join(d, "direct"), "cuda",
+                                "network job, double precision, default "
+                                "routing")
+    agree = rel(r64[1:, 1:], rd64[1:, 1:])
+    pair = files[files.index("n_node_currents_cum.txt") - 1]
+    a = np.loadtxt(os.path.join(d, "forced", pair))
+    b = np.loadtxt(os.path.join(d, "direct", pair))
+    cur = float(np.abs(a - b).max() / np.abs(b).max())
+    note(f"network job, double precision: the tiers agree to {agree:.3e} "
+         f"relative (resistances), {cur:.3e} of max ({pair})")
+    if not (agree <= 1e-4 and cur <= 1e-4):
+        raise AssertionError(f"network job, double precision: iterative "
+                             f"and direct tiers differ by {agree} "
+                             f"(resistances), {cur} ({pair})")
+    for sub in ("forced", "direct"):
+        shutil.rmtree(os.path.join(d, sub))
+    ell = phase_ell(A, rate, dev_name)
+    return {"forced_s": dt, "direct_s": dt_d, "iters": iters,
+            "iters_double": iters64, "peak_gib": peak, "levels": levels,
+            "setup_s": setup, "ell": ell}
+
+
+def phase_ell(A, rate, dev_name):
+    """ell_matvec (torch ops, not a TPU kernel) at the network job's fine
+    level and B = 256 on the card: held against a CSR torch.sparse.mm of
+    the same matrix (1e-5 of max), and both timed with CUDA events
+    beside the bound: the larger of the bytes (idx, w, diag and x read
+    once, y written once) over the card's memory rate and the float32
+    operations (2K + 2 per row and column) over its float32 rate."""
+    from circuitscape_tpu_torch.solve.operators import ell_matvec
+    B = 256
+    x = torch.as_tensor(np.random.default_rng(17).standard_normal(
+        (A.n_pad, B)), dtype=torch.float32, device=A.diag.device)
+    K = A.idx.shape[1]
+    rows = torch.arange(A.n_pad, device=x.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_coo_tensor(
+            torch.stack([torch.cat([rows.repeat_interleave(K), rows]),
+                         torch.cat([A.idx.reshape(-1), rows])]),
+            torch.cat([A.w.reshape(-1), A.diag]),
+            (A.n_pad, A.n_pad)).coalesce().to_sparse_csr()
+    y = ell_matvec(A, x)
+    ref = torch.sparse.mm(csr, x)
+    err = float((y - ref).abs().max() / ref.abs().max())
+    if not err <= TOL:
+        raise AssertionError(f"ell_matvec: {err} of max from the CSR "
+                             f"product")
+    ms = cuda_ms(lambda: ell_matvec(A, x))
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, x))
+    nbytes = (A.idx.numel() * A.idx.element_size() + A.w.numel() * 4 +
+              A.diag.numel() * 4 + 2 * x.numel() * 4)
+    flops = (2 * K + 2) * A.n_pad * B
+    fp32 = next(r for k, r in FP32_FLOPS if k in dev_name)
+    bound = max(nbytes / rate, flops / fp32) * 1e3
+    by = "bytes" if nbytes / rate >= flops / fp32 else "operations"
+    note(f"ell_matvec: {ms:.4f} ms, bound {bound:.4f} ms by {by} "
+         f"({100 * bound / ms:.1f}%), torch.sparse.mm {lib_ms:.4f} ms, "
+         f"n_pad {A.n_pad}, K {K}, B {B}, {err:.3e} of max from the CSR "
+         "product")
+    return {"ms": ms, "bound_ms": bound, "library_ms": lib_ms}
+
+
+def phase_network_advanced(d):
+    """The network advanced job (make_network_advanced_job) on the forced
+    iterative tier on "cuda": the float64 residual of its voltages in
+    (L + G) v = s over the nodes that are not direct grounds, with L the
+    Laplacian scipy builds from the edge list and G the finite grounds'
+    conductances, under 1e-4 of ||s||; and the voltages within 1e-4 of
+    max |v| of the direct tier's (default routing)."""
+    import scipy.sparse as sp
+    cfg, E, w, src, gnd = make_network_advanced_job(d)
+    with forced_iterative_tier():
+        v, dt, iters, _ = run_general(cfg, os.path.join(d, "forced"),
+                                       "cuda", "network advanced job, "
+                                       "forced iterative tier")
+    n = int(E.max()) + 1
+    A = sp.coo_matrix((w, (E[:, 0], E[:, 1])), shape=(n, n)).tocsr()
+    A = A + A.T
+    L = sp.diags(np.asarray(A.sum(axis=1)).ravel()) - A
+    g = np.zeros(n)
+    direct = gnd[gnd[:, 1] == 0, 0].astype(np.int64)
+    finite = gnd[gnd[:, 1] > 0]
+    g[finite[:, 0].astype(np.int64)] = 1.0 / finite[:, 1]
+    s = np.zeros(n)
+    s[src[:, 0].astype(np.int64)] = src[:, 1]
+    keep = np.setdiff1d(np.arange(n), direct)
+    volt = np.asarray(v[:, 1], np.float64)
+    res = ((L + sp.diags(g)) @ volt - s)[keep]
+    rel = float(np.linalg.norm(res) / np.linalg.norm(s[keep]))
+    vd, dt_d, _, _ = run_general(cfg, os.path.join(d, "direct"), "cuda",
+                                  "network advanced job, default routing "
+                                  "(native Cholesky)")
+    agree = float(np.abs(v[:, 1] - vd[:, 1]).max() / np.abs(vd[:, 1]).max())
+    note(f"network advanced job: {dt:.3f} s (direct tier {dt_d:.3f} s), CG "
+         f"iterations {iters}, float64 residual {rel:.3e}, voltages agree "
+         f"with the direct tier to {agree:.3e} of max, at direct grounds "
+         f"{float(np.abs(volt[direct]).max()):.3e}")
+    if not (v.shape == (n, 2) and np.all(np.isfinite(volt)) and
+            rel < 1e-4 and agree <= 1e-4 and np.all(volt[direct] == 0)):
+        raise AssertionError(f"network advanced job: residual {rel}, "
+                             f"agreement {agree}")
+    return {"s": dt, "iters": iters, "residual": rel}
+
+
 def phase_agree(d):
     """256 x 256 bench-recipe jobs on the card and on the CPU: the
     shortcut job, and a maps job with per-pair and max maps."""
@@ -1101,6 +1444,101 @@ def phase_agree(d):
     agree_scenario(pd, "256x256 all-to-one maps job", dict(
         cfg, scenario="all-to-one", write_cur_maps="True"), 8 + 1,
         kirchhoff=gmap)
+
+    # the general sparse-graph tier: a lattice network on the forced
+    # iterative tier, a raster maps job below CS_PAIRWISE_DEVICE_MIN and
+    # a one-to-all job with included pairs (the per-point loop)
+    pd = os.path.join(d, "network")
+    os.makedirs(pd)
+    with forced_iterative_tier():
+        agree_general(pd, "10k-node network job",
+                      make_network_job(pd, n=10_000, nfocal=8),
+                      2 * 28 + 2 + 2)
+    pd = os.path.join(d, "general_maps")
+    os.makedirs(pd)
+    cfg, _ = make_job(pd, 150, 150, npoints=6)
+    agree_general(pd, "150x150 maps job (general tier)", dict(
+        cfg, write_cur_maps="True", write_volt_maps="True"),
+        2 * 15 + 1 + 2)
+    pd = os.path.join(d, "general_o2a")
+    os.makedirs(pd)
+    cfg, _ = make_job(pd, 100, 100, npoints=6)
+    with open(os.path.join(pd, "pairs.txt"), "w") as f:
+        f.write("mode include\n1 2\n1 3\n2 4\n3 4\n4 5\n5 6\n")
+    agree_general(pd, "100x100 one-to-all job with included pairs", dict(
+        cfg, scenario="one-to-all", use_included_pairs="True",
+        included_pairs_file=os.path.join(pd, "pairs.txt"),
+        write_cur_maps="True"), 6 + 1)
+
+
+def _branch_union(g, c):
+    """Two branch-current files (node, node, |I|) as values over the
+    union of their branches: the writer drops branches with |I| <= 1e-6
+    (src/out.jl:117-124), so a branch at that threshold can appear in
+    one file only; there it counts as 0."""
+    keys = sorted({(a, b) for a, b in g[:, :2]} | {(a, b) for a, b in
+                                                    c[:, :2]})
+    out = []
+    for m in (g, c):
+        v = {(a, b): x for a, b, x in m}
+        out.append(np.asarray([[a, b, v.get((a, b), 0.0)]
+                               for a, b in keys]))
+    return out
+
+
+def agree_general(d, label, cfg, nfiles):
+    """One job of the general sparse-graph tier on "cuda" and on "cpu"
+    (outputs in d/cuda, d/cpu): results within 1e-5 relative (elementwise,
+    where the cpu's is not 0), the same nfiles output files (current and
+    voltage text files and grids, resistances), each within 1e-5 of its
+    max |cpu value|, and the same CG iteration count on every pass, or
+    else each of the card's passes, rerun on the CPU from its own
+    operator, right-hand sides and hierarchy, within one iteration of
+    its count."""
+    out, passes, files = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        out[dev], _, passes[dev], rp = run_general(
+            cfg, os.path.join(d, dev), dev, f"{label} on {dev}",
+            keep=dev == "cuda")
+        files[dev] = sorted(f for f in os.listdir(os.path.join(d, dev))
+                            if f.endswith((".txt", ".asc")) or
+                            "resistances" in f)
+        if dev == "cuda":
+            replayed = passes["cuda"] if passes["cuda"] == [] else \
+                rp.replay_on_cpu()
+            del rp
+    a, b = out["cuda"], out["cpu"]
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+    same = passes["cuda"] == passes["cpu"]
+    near = (len(replayed) == len(passes["cuda"]) and
+            all(abs(n - m) <= 1 for n, m in zip(replayed, passes["cuda"])))
+    note(f"{label}: CG iterations cuda {passes['cuda']}, cpu "
+         f"{passes['cpu']}" + ("" if same else f", the card's passes "
+                               f"replayed on the cpu {replayed}") +
+         f"; results agree to {rel:.3e}")
+    if not (a.shape == b.shape and np.all(np.isfinite(a)) and rel <= TOL and
+            passes["cuda"] and (same or near)):
+        raise AssertionError(f"{label}: cuda and cpu results differ by "
+                             f"{rel}; CG iterations {passes}, the card's "
+                             f"replayed on the cpu {replayed}")
+    if files["cuda"] != files["cpu"] or len(files["cpu"]) != nfiles:
+        raise AssertionError(f"{label}: cuda wrote {len(files['cuda'])} "
+                             f"files, cpu {len(files['cpu'])}, expected "
+                             f"{nfiles}")
+    worst = 0.0
+    for f in files["cpu"]:
+        skip = 6 if f.endswith(".asc") else 0
+        g = np.loadtxt(os.path.join(d, "cuda", f), skiprows=skip, ndmin=2)
+        c = np.loadtxt(os.path.join(d, "cpu", f), skiprows=skip, ndmin=2)
+        if "branch_currents" in f:
+            g, c = _branch_union(g, c)
+        err = float(np.abs(g - c).max()) / max(float(np.abs(c).max()),
+                                                 1e-30)
+        if not (g.shape == c.shape and err <= TOL):
+            raise AssertionError(f"{label}: {f} differs by {err} of max "
+                                 "|cpu|")
+        worst = max(worst, err)
+    note(f"{label}: {nfiles} files agree to {worst:.3e} of max")
 
 
 def agree_scenario(d, label, cfg, nmaps=0, kirchhoff=None):
@@ -1257,6 +1695,8 @@ def main():
         phase_advanced(adv_cfg, gmap, adv_src, adv_cond)
         phase_onetoall(cfg, r, level_times)
         phase_alltoone(cfg, gmap, level_times)
+        phase_network(tempfile.mkdtemp(dir=d), rate, dev_name)
+        phase_network_advanced(tempfile.mkdtemp(dir=d))
         phase_agree(tempfile.mkdtemp(dir=d))
     finally:
         shutil.rmtree(d, ignore_errors=True)

@@ -2,12 +2,13 @@
 
 Counterpart of circuitscape_tpu/drivers/advanced.py.  Parity reference:
 src/raster/advanced.jl:1-344 (AdvancedProblem, compute_advanced_data,
-get_sources_and_grounds, resolve_conflicts, advanced_kernel).  Every
-component with sources and grounds solves in one batched stencil solve
-whose ground diagonal is baked into the MG hierarchy.  The reference's
-per-component host loop, which the JAX package keeps for small grids and
-direct solvers, needs the general sparse-graph tier (ROADMAP queue 1
-item 9).
+get_sources_and_grounds, resolve_conflicts, advanced_kernel,
+multiple_solver, multiple_solve).  On a raster above
+CS_ADVANCED_DEVICE_MIN cells with cg+amg, every component with sources
+and grounds solves in one batched stencil solve whose ground diagonal is
+baked into the MG hierarchy.  Every other job (networks, small grids,
+direct solvers, the per-point solves of one-to-all) takes the
+reference's per-component loop on the general sparse-graph tier.
 """
 
 from __future__ import annotations
@@ -89,26 +90,38 @@ def get_sources_and_grounds(data, flags, G, nodemap):
                                     flags, G, nodemap)
 
 
-def _get_sources_and_grounds(source_map, ground_map, flags, G, nodemap):
-    """Per-node source and ground values from the raster maps (a merged
-    node sums its cells'), conflicts resolved
-    (src/raster/advanced.jl:82-117; the network lists come with item 9)."""
+def _get_sources_and_grounds(source_map, ground_map, flags, G, nodemap,
+                             override_policy=None):
+    """Per-node source and ground values, conflicts resolved by the
+    job's policy or override_policy (src/raster/advanced.jl:82-117).  A
+    raster's maps are summed per node (a merged node sums its cells');
+    a network's (node, value) lists are assigned, a ground resistance of
+    0 becoming a direct ground (inf)."""
+    policy = override_policy if override_policy else flags.policy
     n = G.shape[0]
     dtype = G.dtype
     sources = np.zeros(n, dtype)
     grounds = np.zeros(n, dtype)
 
-    si, sj = np.nonzero(source_map)
-    for r, c in zip(si, sj):
-        v = nodemap[r, c]
-        if v != 0:
-            sources[v - 1] += source_map[r, c]
-    gi, gj = np.nonzero(ground_map)
-    for r, c in zip(gi, gj):
-        v = nodemap[r, c]
-        if v != 0:
-            grounds[v - 1] += ground_map[r, c]
-    return resolve_conflicts(sources, grounds, flags.policy)
+    if flags.is_raster:
+        si, sj = np.nonzero(source_map)
+        for r, c in zip(si, sj):
+            v = nodemap[r, c]
+            if v != 0:
+                sources[v - 1] += source_map[r, c]
+        gi, gj = np.nonzero(ground_map)
+        for r, c in zip(gi, gj):
+            v = nodemap[r, c]
+            if v != 0:
+                grounds[v - 1] += ground_map[r, c]
+    else:
+        gm = ground_map.copy()
+        if flags.grnd_file_is_res:
+            with np.errstate(divide="ignore"):
+                gm[:, 1] = 1.0 / gm[:, 1]
+        sources[source_map[:, 0].astype(np.int64) - 1] = source_map[:, 1]
+        grounds[gm[:, 0].astype(np.int64) - 1] = gm[:, 1]
+    return resolve_conflicts(sources, grounds, policy)
 
 
 def resolve_conflicts(sources, grounds, policy):
@@ -154,14 +167,17 @@ def _advanced_device_fast(prob: AdvancedProblem, flags, cfg, device):
     include the finite-ground terms (src/out.jl:193-202).
 
     Returns (volt grid, current grid), or None where the JAX package
-    takes its general path: off cg+amg, a check node, grids below
-    CS_ADVANCED_DEVICE_MIN cells, or nothing to solve."""
+    takes its general path: a network, off cg+amg, a check node or a
+    one-to-all / all-to-one point, grids below CS_ADVANCED_DEVICE_MIN
+    cells, or nothing to solve."""
     from ..solve.prepare import prepare_stencil_solver_from_gmap_pen
     from ..solve.stencil import (build_poly_projector,
                                  stencil_node_currents,
                                  stencil_solve_advanced_batch)
 
-    if cfg.solver != "cg+amg" or prob.check_node != -1:
+    if (not flags.is_raster or cfg.solver != "cg+amg" or
+            prob.check_node != -1 or flags.is_onetoall or
+            flags.is_alltoone):
         return None
     min_cells = int(os.environ.get("CS_ADVANCED_DEVICE_MIN", "40000"))
     if prob.cellmap.size < min_cells:
@@ -302,15 +318,144 @@ def _node_currents_with_fg(S, V, fg_grid, proj=None):
 
 
 def advanced_kernel(prob: AdvancedProblem, flags, cfg, device):
-    """src/raster/advanced.jl:151-271 on the stencil device path; where
-    the JAX package's device path declines, its per-component host loop
-    needs the general sparse-graph tier, which is not carried yet."""
+    """src/raster/advanced.jl:151-271: the stencil device path where it
+    applies, else one solve per component with sources and grounds on
+    the general sparse-graph tier.  Returns (result, current grid)."""
     fast = _advanced_device_fast(prob, flags, cfg, device)
-    if fast is None:
-        raise NotImplementedError(
-            "this advanced job takes the JAX package's general sparse-graph "
-            "path (solver other than cg+amg, a grid below "
-            "CS_ADVANCED_DEVICE_MIN cells, or no component with both "
-            "sources and grounds), which is not carried by "
-            "circuitscape_tpu_torch yet (ROADMAP queue 1 item 9)")
-    return fast
+    if fast is not None:
+        return fast
+    G = prob.G
+    nodemap = prob.nodemap
+    polymap = prob.polymap
+    hbmeta = prob.hbmeta
+    sources = prob.sources
+    grounds = prob.grounds
+    finitegrounds = prob.finitegrounds
+    cellmap = prob.cellmap
+    dtype = G.dtype
+
+    of = flags.outputflags
+    is_raster = flags.is_raster
+
+    volt = np.zeros(nodemap.shape, dtype)
+    solver_called = False
+    voltages = np.zeros(G.shape[0], dtype)
+    outvolt = out.alloc_map(hbmeta, dtype) if is_raster else None
+    outcurr = (out.alloc_map(hbmeta, dtype) if is_raster
+               else np.zeros((0, 0), dtype))
+
+    fg_sentinel = finitegrounds.size == 1 and finitegrounds[0] == -9999.0
+    Gcsr = G.tocsr()
+
+    for c in prob.cc:
+        c = np.sort(np.asarray(c))
+        if prob.check_node != -1 and prob.check_node not in c:
+            continue
+
+        # row then column slice (np.ix_ on CSR densifies the index mesh)
+        a_local = Gcsr[c - 1][:, c - 1].tocsr()
+        s_local = sources[c - 1]
+        g_local = grounds[c - 1]
+
+        if s_local.sum() == 0 or g_local.sum() == 0:
+            continue
+
+        f_local = finitegrounds if fg_sentinel else finitegrounds[c - 1]
+
+        v_comp = multiple_solver(cfg, prob.solver, a_local, s_local.copy(),
+                                 g_local, f_local, device)
+        voltages[c - 1] += v_comp
+        solver_called = True
+
+        if is_raster:
+            local_nodemap = build.construct_local_node_map(nodemap, c,
+                                                           polymap)
+            if of.write_volt_maps:
+                out.accum_voltages(outvolt, v_comp, local_nodemap, hbmeta)
+            if of.write_cur_maps:
+                out.accum_currents(outcurr, cfg, a_local, v_comp, f_local,
+                                   local_nodemap, hbmeta)
+            mask = local_nodemap != 0
+            volt[mask] = v_comp[local_nodemap[mask] - 1]
+
+    name = "" if prob.src == 0 else f"_{int(prob.src)}"
+    cd = _FullGraphData(Gcsr, cellmap, hbmeta)
+    with CSTIMER("write maps"):
+        if of.write_volt_maps:
+            if not is_raster:
+                out.write_volt_maps(name, voltages, cd, flags, cfg)
+            else:
+                out.write_grid(outvolt, name, cfg, hbmeta, cellmap=cellmap,
+                               voltage=True)
+        if of.write_cur_maps or of.write_cum_cur_map_only:
+            if not is_raster:
+                out.write_cur_maps(name, voltages, cd, finitegrounds, flags,
+                                   cfg, None)
+            else:
+                out.write_grid(outcurr, name, cfg, hbmeta, cellmap=cellmap)
+
+    if not is_raster:
+        ids = np.arange(1, G.shape[0] + 1, dtype=dtype)
+        return np.column_stack([ids, voltages]), outcurr
+
+    if not solver_called:
+        return -np.ones((1, 1), dtype), outcurr
+
+    if flags.is_onetoall:
+        idx = prob.source_map != 0
+        vals = volt[idx] / prob.source_map[idx]
+        # Julia's `val[1] ≈ 0` with default atol is exact equality
+        if vals[0] == 0:
+            return -np.ones((1, 1), dtype), outcurr
+        return vals.reshape(-1, 1).astype(dtype), outcurr
+    if flags.is_alltoone:
+        return np.zeros((1, 1), dtype), outcurr
+
+    return volt, outcurr
+
+
+class _FullGraphData:
+    """src/raster/advanced.jl:335-343 (FullGraph)."""
+
+    def __init__(self, G, cellmap, hbmeta=None):
+        self.matrix = G
+        self.cc = np.arange(1, G.shape[0] + 1, dtype=np.int64)
+        self.local_nodemap = np.zeros((0, 0), np.int64)
+        self.hbmeta = hbmeta
+        self.cellmap = cellmap
+
+
+def multiple_solver(cfg, solver, a, sources, grounds, finitegrounds,
+                    device):
+    """One simultaneous solve with finite and direct (infinite) grounds
+    (src/raster/advanced.jl:274-305): finite grounds on the diagonal,
+    direct grounds' rows and columns deleted."""
+    asolve = a
+    if finitegrounds[0] != -9999:
+        asolve = a + sp.diags(finitegrounds)
+
+    infgrounds = np.nonzero(grounds == np.inf)[0]
+    keep = np.setdiff1d(np.arange(a.shape[0]), infgrounds)
+    sources_kept = np.delete(sources, infgrounds)
+    asolve = asolve.tocsr()[keep][:, keep]
+
+    volt = multiple_solve(solver, asolve.tocsr(), sources_kept, device)
+
+    voltages = np.zeros(a.shape[0], a.dtype)
+    voltages[keep] = volt
+    return voltages
+
+
+def multiple_solve(solver, matrix, sources, device):
+    """src/raster/advanced.jl:307-333."""
+    with CSTIMER("construct preconditioner/factorization"):
+        ctx = solver.build(matrix, matrix.dtype, device)
+    with CSTIMER("solve"):
+        volt = ctx.solve(sources.reshape(-1, 1))[:, 0]
+    snorm = np.linalg.norm(sources)
+    if snorm > 0:
+        res = np.linalg.norm(matrix @ volt - sources) / snorm
+        if res >= consts.RESIDUAL_GATE:
+            raise SolverFailedError(
+                f"Advanced solve residual {res} exceeds tolerance")
+    return volt

@@ -12,9 +12,11 @@ pairs of every connected component solve as one batched device solve
 voltage-ratio shortcut.  Jobs that write maps or exclude pairs turn the
 shortcut off and solve every pair in device chunks, with their current
 maps made on the device (_stencil_maps_solve), when the grid has at
-least CS_PAIRWISE_DEVICE_MIN cells; smaller ones take the JAX package's
-general sparse-graph path, which is not carried yet (ROADMAP queue 1
-item 9).
+least CS_PAIRWISE_DEVICE_MIN cells.  Every other job (networks, smaller
+grids, direct solvers) takes the general sparse-graph path: per
+connected component, all pair right-hand sides form one (n, n_pairs)
+block, solved by the component's solve context (solve/dispatch.py:
+batched ELL PCG on the device, or the native Cholesky on the host).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from .. import consts, cslog, out, stats
 from ..checkpoint import Checkpoint
+from ..graph.build import construct_local_node_map
 from ..timer import CSTIMER
 
 
@@ -140,9 +143,10 @@ class _Shortcut:
 
 def single_ground_all_pairs(prob: GraphProblem, flags, cfg, device,
                             log=True):
-    """Solve all focal-point pairs (src/core.jl:70-305): in shortcut
-    mode, or pair by pair on the stencil device path when the job
-    writes maps or excludes pairs."""
+    """Solve all focal-point pairs (src/core.jl:70-305, :312-515): the
+    stencil shortcut, then the stencil maps path at or above
+    CS_PAIRWISE_DEVICE_MIN cells, then the general per-component loop,
+    in the JAX package's order."""
     a = prob.G
     dtype = a.dtype
     points = prob.points
@@ -158,44 +162,175 @@ def single_ground_all_pairs(prob: GraphProblem, flags, cfg, device,
     num_pairs = get_num_pairs(prob.cc, points, exclude, orig_pts)
     if log:
         cslog.info("Total number of pair solves = %s", num_pairs)
-
-    get_shortcut = (flags.is_raster and not of.any_maps and not exclude)
-    stencil_base = (flags.is_raster and not prob.solver.is_direct and
-                    prob.cellmap.size > 0 and prob.nodemap.size > 0)
-    maps_min = int(os.environ.get("CS_PAIRWISE_DEVICE_MIN", "40000"))
-    if not stencil_base or (not get_shortcut and
-                            prob.cellmap.size < maps_min):
-        raise NotImplementedError(
-            "pairwise jobs off the stencil device path (maps-on or "
-            f"exclude-pair jobs below CS_PAIRWISE_DEVICE_MIN={maps_min} "
-            "cells) take the general sparse-graph path, which is not "
-            "carried by circuitscape_tpu_torch yet (ROADMAP queue 1 item 9)")
     if of.any_maps and cfg.write_as_tif:
         raise NotImplementedError(
             "GeoTIFF output is not carried by circuitscape_tpu_torch yet "
             "(ROADMAP queue 1 item 10); set write_as_tif = False")
 
     resistances = -np.ones((numpoints, numpoints), dtype)
-    if not get_shortcut:
-        _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
-                            device)
-        return _save_padded(resistances, orig_pts, cfg)
     voltmatrix = np.zeros((numpoints, numpoints), dtype)
     shortcut_res = -np.ones((numpoints, numpoints), dtype)
 
+    get_shortcut = (flags.is_raster and not of.any_maps and not exclude)
+    stencil_base = (flags.is_raster and not prob.solver.is_direct and
+                    prob.cellmap.size > 0 and prob.nodemap.size > 0)
+    maps_min = int(os.environ.get("CS_PAIRWISE_DEVICE_MIN", "40000"))
+    if stencil_base and not get_shortcut and prob.cellmap.size >= maps_min:
+        _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
+                            device)
+        return _save_padded(resistances, orig_pts, cfg)
+
     ckpt = Checkpoint(getattr(cfg, "checkpoint_file", ""))
     done_pairs = ckpt.load(resistances, cum, voltmatrix)
+    if get_shortcut:
+        cslog.info("Triggering resistance calculation shortcut")
+        num_pairs = get_num_pairs_shortcut(prob.cc, points, exclude,
+                                           orig_pts)
+        cslog.info("Total number of pair solves has been reduced to %s",
+                   num_pairs)
+    if stencil_base and get_shortcut:
+        _stencil_shortcut_solve(prob, flags, resistances, voltmatrix,
+                                shortcut_res, device, ckpt, done_pairs,
+                                max_par=getattr(cfg, "max_parallel", 0))
+        ckpt.finish()
+        return _save_padded(shortcut_res, orig_pts, cfg)
 
-    cslog.info("Triggering resistance calculation shortcut")
-    num_pairs = get_num_pairs_shortcut(prob.cc, points, exclude, orig_pts)
-    cslog.info("Total number of pair solves has been reduced to %s",
-               num_pairs)
-
-    _stencil_shortcut_solve(prob, flags, resistances, voltmatrix,
-                            shortcut_res, device, ckpt, done_pairs,
-                            max_par=getattr(cfg, "max_parallel", 0))
+    sc = _Shortcut(get_shortcut, voltmatrix, shortcut_res)
+    for comp in prob.cc:
+        comp = np.sort(np.asarray(comp))
+        if _sub_focal(points, comp):
+            _general_component(prob, flags, cfg, device, comp, sc,
+                               resistances, exclude, ckpt, done_pairs)
     ckpt.finish()
-    return _save_padded(shortcut_res, orig_pts, cfg)
+    return _save_padded(shortcut_res if get_shortcut else resistances,
+                        orig_pts, cfg)
+
+
+def _general_component(prob, flags, cfg, device, comp, sc, resistances,
+                       exclude, ckpt, done_pairs):
+    """One connected component on the general sparse-graph tier
+    (src/core.jl:386-515): the component's Laplacian, regularized for
+    the iterative tier (src/core.jl:161), its solve context, every pair
+    (anchor pairs only in shortcut mode) as one right-hand-side column,
+    normalized to its source (src/core.jl:466-472), then each pair's
+    outputs."""
+    a = prob.G
+    dtype = a.dtype
+    points = prob.points
+    orig_pts = prob.user_points
+    cum = prob.cum
+    csub = _sub_focal(points, comp)
+
+    # row slice, then column slice: np.ix_ would build a dense index mesh
+    idx = comp - 1
+    matrix = a.tocsr()[idx][:, idx].tocsr().astype(dtype)
+    if not prob.solver.is_direct:
+        eps = np.finfo(np.dtype(dtype)).eps
+        matrix = matrix.copy()
+        matrix.data = matrix.data + eps * np.linalg.norm(matrix.data)
+
+    with CSTIMER("construct preconditioner/factorization"):
+        ctx = prob.solver.build(matrix, dtype, device)
+    with CSTIMER("construct local nodemap"):
+        local_nodemap = construct_local_node_map(prob.nodemap, comp,
+                                                 prob.polymap)
+    component_data = ComponentData(comp, matrix, local_nodemap,
+                                   prob.hbmeta, prob.cellmap)
+
+    def comp_index(node):
+        k = np.searchsorted(comp, node)
+        if k >= len(comp) or comp[k] != node:
+            raise ValueError(f"Node {node} not found in component")
+        return int(k)
+
+    pair_list = []  # (comp_i, comp_j, [(c_i, c_j), ...])
+    point_range = range(1) if sc.get_shortcut_resistances else \
+        range(len(csub))
+    for point_idx in point_range:
+        src_node = csub[point_idx]
+        comp_i = comp_index(src_node)
+        src_indices = np.nonzero(points == src_node)[0]
+        # zero resistance between focal points collapsed to one node
+        for ii in range(len(src_indices)):
+            for jj in range(ii + 1, len(src_indices)):
+                resistances[src_indices[ii], src_indices[jj]] = 0
+                resistances[src_indices[jj], src_indices[ii]] = 0
+        for pair_idx in range(point_idx + 1, len(csub)):
+            dst_node = csub[pair_idx]
+            if src_node == dst_node:
+                continue
+            comp_j = comp_index(dst_node)
+            dst_indices = np.nonzero(points == dst_node)[0]
+            combos = [(int(ci), int(cj))
+                      for ci in src_indices for cj in dst_indices
+                      if (int(orig_pts[ci]), int(orig_pts[cj]))
+                      not in exclude]
+            if not combos:
+                continue
+            if done_pairs and all(c in done_pairs for c in combos):
+                continue  # resumed from a checkpoint
+            pair_list.append((comp_i, comp_j, combos))
+
+    # network currents: all columns of a block at once (vectorized
+    # branch and node currents, pooled file writes)
+    batch_net = not flags.is_raster and not sc.get_shortcut_resistances
+    batch = prob.solver.batch_size or len(pair_list) or 1
+    for st in range(0, len(pair_list), batch):
+        chunk = pair_list[st:st + batch]
+        rhs = np.zeros((matrix.shape[0], len(chunk)), dtype)
+        for col, (ci, cj, _) in enumerate(chunk):
+            rhs[ci, col] = -1
+            rhs[cj, col] = 1
+        with CSTIMER("solve and accumulate pairs"):
+            lhs = ctx.solve(rhs)
+            lhs = lhs - lhs[[ci for ci, _, _ in chunk],
+                            range(len(chunk))][None, :]
+        if batch_net:
+            with CSTIMER("postprocess"):
+                out.network_batch_postprocess(matrix, lhs, chunk, orig_pts,
+                                              comp, cum, flags, cfg)
+        for col, (ci, cj, combos) in enumerate(chunk):
+            voltages = lhs[:, col]
+            resistance = float(voltages[cj] - voltages[ci])
+            for (c_i, c_j) in combos:
+                resistances[c_i, c_j] = resistance
+                resistances[c_j, c_i] = resistance
+                output = _Output(points, voltages,
+                                 (int(orig_pts[c_i]), int(orig_pts[c_j])),
+                                 (ci, cj), resistance, c_j)
+                with CSTIMER("postprocess"):
+                    if batch_net:
+                        if flags.outputflags.write_volt_maps:
+                            out.write_volt_maps(
+                                f"_{output.orig_pts[0]}_"
+                                f"{output.orig_pts[1]}", voltages,
+                                component_data, flags, cfg)
+                    else:
+                        postprocess(output, component_data, flags, sc, cfg,
+                                    cum)
+            ckpt.mark(combos)
+        ckpt.save(resistances, cum, sc.voltmatrix)
+
+    if sc.get_shortcut_resistances:
+        anchor = int(np.nonzero(points == csub[0])[0][0])
+        update_shortcut_resistances(anchor, sc, resistances, points, comp)
+
+
+def postprocess(output: _Output, component_data, flags, shortcut, cfg, cum):
+    """src/core.jl:655-683."""
+    if shortcut.get_shortcut_resistances:
+        update_voltmatrix(shortcut, output, component_data)
+        return
+
+    name = f"_{output.orig_pts[0]}_{output.orig_pts[1]}"
+    of = flags.outputflags
+    if of.write_volt_maps:
+        out.write_volt_maps(name, output.voltages, component_data, flags,
+                            cfg)
+    if (of.write_cur_maps or of.write_cum_cur_map_only or
+            of.write_max_cur_maps or not flags.is_raster):
+        out.write_cur_maps(name, output.voltages, component_data,
+                           np.asarray([-9999.0]), flags, cfg, cum)
 
 
 def _save_padded(resistances, orig_pts, cfg):

@@ -1,8 +1,8 @@
 """Per-run computation flags derived from the config.
 
-Counterpart of circuitscape_tpu/drivers/flags.py (raster flags; the
-network flags come with the network drivers, ROADMAP queue 1 item 9).
-Parity reference: src/raster/pairwise.jl:1-12,32-52 (RasterFlags).
+Counterpart of circuitscape_tpu/drivers/flags.py.  Parity reference:
+src/raster/pairwise.jl:1-12,32-52 (RasterFlags),
+src/network/pairwise.jl:67-93 (NetworkFlags).
 """
 
 from __future__ import annotations
@@ -26,6 +26,17 @@ class RasterFlags:
     outputflags: OutputFlags
 
 
+@dataclass
+class NetworkFlags:
+    is_raster: bool
+    is_advanced: bool
+    is_alltoone: bool
+    is_onetoall: bool
+    grnd_file_is_res: bool
+    policy: str
+    outputflags: OutputFlags
+
+
 def get_raster_flags(cfg) -> RasterFlags:
     return RasterFlags(
         is_raster=True,
@@ -37,5 +48,17 @@ def get_raster_flags(cfg) -> RasterFlags:
         policy=cfg.remove_src_or_gnd,
         four_neighbors=cfg.connect_four_neighbors_only,
         avg_res=cfg.connect_using_avg_resistances,
+        outputflags=get_output_flags(cfg),
+    )
+
+
+def get_network_flags(cfg) -> NetworkFlags:
+    return NetworkFlags(
+        is_raster=False,
+        is_advanced=cfg.scenario == "advanced",
+        is_alltoone=False,
+        is_onetoall=False,
+        grnd_file_is_res=cfg.ground_file_is_resistances,
+        policy=cfg.remove_src_or_gnd,
         outputflags=get_output_flags(cfg),
     )

@@ -4,10 +4,10 @@ Counterpart of circuitscape_tpu/drivers/onetoall.py.  Parity reference:
 src/raster/onetoall.jl:1-194.  Each focal node is one advanced solve
 (source at the node against grounds at the others, or the inverse); on
 the stencil device path every focal node of the job is one column of a
-batched stencil solve.  The reference's one-solve-per-point host loop,
-which the JAX package keeps for included pairs, merged points, small
-grids and direct solvers, needs the general sparse-graph tier (ROADMAP
-queue 1 item 9).
+batched stencil solve.  Included pairs, merged points, small grids and
+direct solvers take the reference's one-solve-per-point loop
+(onetoall_kernel), each point an advanced job on the general
+sparse-graph tier, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,9 +21,12 @@ import torch
 from .. import consts, cslog, out, stats
 from ..graph import build
 from ..io.loaders import load_raster_data
+from ..solve.dispatch import get_solver
 from ..timer import CSTIMER
+from .advanced import (AdvancedProblem, _get_sources_and_grounds,
+                       advanced_kernel)
 from .flags import get_raster_flags
-from .raster import _grid_components
+from .raster import _grid_components, prune_points
 
 
 def raster_one_to_all(cfg, dtype, device):
@@ -266,15 +269,136 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
 
 
 def onetoall_kernel(data, flags, cfg, dtype, device):
-    """src/raster/onetoall.jl:13-167 on the stencil device path; where
-    the JAX package's device path declines, its per-point loop needs the
-    general sparse-graph tier, which is not carried yet."""
+    """src/raster/onetoall.jl:13-167: the stencil device path where it
+    applies, else one advanced solve per focal point.  Reference quirks
+    are kept, since the goldens encode them: the nodemap rebuilt from
+    the original polymap in the included-pairs branch, strengths indexed
+    by loop position."""
     fast = _onetoall_device_fast(data, flags, cfg, dtype, device)
-    if fast is None:
-        raise NotImplementedError(
-            f"this {cfg.scenario} job (included pairs, repeated or merged "
-            "focal points, a solver other than cg+amg, or a grid below "
-            "CS_ONETOALL_DEVICE_MIN cells) takes the JAX package's per-point "
-            "general sparse-graph path, which is not carried by "
-            "circuitscape_tpu_torch yet (ROADMAP queue 1 item 9)")
-    return fast
+    if fast is not None:
+        return fast
+    strengths = data.strengths
+    included_pairs = data.included_pairs
+    points_rc = data.points_rc
+    gmap = data.cellmap
+    polymap = data.polymap
+    hbmeta = data.hbmeta
+
+    use_variable_strengths = strengths.size > 0
+    use_included_pairs = not included_pairs.isempty()
+    mode = 0 if included_pairs.mode == "include" else 1
+    one_to_all = flags.is_onetoall
+
+    if use_included_pairs:
+        prune_points(points_rc, included_pairs.point_ids)
+        if use_variable_strengths:
+            strengths = prune_strengths(strengths, included_pairs.point_ids)
+
+    point_map = np.zeros(gmap.shape, np.int64)
+    rows, cols, pts = points_rc
+    for x in range(len(pts)):
+        point_map[rows[x] - 1, cols[x] - 1] = pts[x]
+
+    points_unique = list(dict.fromkeys(int(p) for p in pts))
+
+    with CSTIMER("construct graph"):
+        newpoly = build.create_new_polymap(gmap, polymap, points_rc, 0, 0,
+                                           point_map)
+        nodemap = build.construct_node_map(gmap, newpoly)
+        a = build.construct_graph(gmap, nodemap, flags.avg_res,
+                                  flags.four_neighbors)
+        cc = build.components(a)
+        G = build.laplacian(a)
+    cslog.info("There are %s points and %s connected components",
+               a.shape[0], len(cc))
+
+    cum = out.initialize_cum_maps(gmap, flags.outputflags.write_max_cur_maps)
+
+    point_ids = included_pairs.point_ids
+    num_points_to_solve = len(points_unique)
+    res = np.zeros(num_points_to_solve, dtype)
+    original_point_map = point_map.copy()
+    unique_point_map = np.zeros(gmap.shape, np.int64)
+    strength_map_base = (np.zeros(gmap.shape, dtype)
+                         if use_variable_strengths
+                         else np.zeros((0, 0), dtype))
+
+    for i in points_unique:
+        ind = int(np.nonzero(pts == i)[0][0])
+        unique_point_map[rows[ind] - 1, cols[ind] - 1] = pts[ind]
+
+    def solve_point(i):
+        point_map = original_point_map.copy()
+        strength_map = strength_map_base.copy()
+        local_newpoly = newpoly
+        local_nodemap = nodemap
+        stren = strengths[i, 1] if use_variable_strengths else 1
+        cslog.info("Solving point %s of %s", i + 1, num_points_to_solve)
+        n = points_unique[i]
+
+        if use_included_pairs:
+            for j in range(len(point_ids)):
+                if i != j and included_pairs.include_pairs[i, j] == mode:
+                    point_map[point_map == point_ids[j]] = 0
+            local_newpoly = build.create_new_polymap(
+                gmap, polymap, points_rc, 0, 0, point_map)
+            # reference quirk: nodemap rebuilt from the ORIGINAL polymap
+            # (src/raster/onetoall.jl:90)
+            local_nodemap = build.construct_node_map(gmap, polymap)
+
+        if use_variable_strengths:
+            tmp = np.array([point_map[rows[x] - 1, cols[x] - 1]
+                            for x in range(len(rows))])
+            _strengths = strengths.copy()
+            _strengths[tmp == 0, 1] = 1
+            for x in range(len(rows)):
+                strength_map[rows[x] - 1, cols[x] - 1] = _strengths[x, 1]
+
+        if point_map.sum() == n:
+            return -1, None
+
+        T = dtype
+        if one_to_all:
+            source_map = np.where(unique_point_map == n, T(stren), T(0))
+            ground_map = np.where(point_map == n, 0, point_map).astype(T)
+            ground_map = np.where(ground_map > 0, np.inf, ground_map)
+        else:
+            if use_variable_strengths:
+                source_map = np.where(unique_point_map == n, T(0),
+                                      strength_map).astype(T)
+            else:
+                source_map = np.where(unique_point_map != 0, T(1), T(0))
+                source_map = np.where(point_map == n, T(0), source_map)
+            ground_map = np.where(point_map == n, np.inf, T(0))
+
+        check_node = int(local_nodemap[rows[i] - 1, cols[i] - 1])
+
+        policy = "rmvgnd" if one_to_all else "rmvsrc"
+        sources, grounds, finite_grounds = _get_sources_and_grounds(
+            source_map, ground_map, flags, G, local_nodemap, policy)
+
+        advanced_data = AdvancedProblem(G, cc, local_nodemap, local_newpoly,
+                                        hbmeta, sources, grounds, source_map,
+                                        finite_grounds, check_node, n, gmap,
+                                        get_solver(cfg))
+        v, curr = advanced_kernel(advanced_data, flags, cfg, device)
+        return v.flat[0], curr
+
+    results = [solve_point(i) for i in range(num_points_to_solve)]
+
+    # deterministic reduction over the per-point current maps
+    for i, (r_i, curr) in enumerate(results):
+        res[i] = r_i
+        if curr is None:
+            continue
+        cum.cum_curr += curr
+        if flags.outputflags.write_max_cur_maps:
+            np.maximum(cum.max_curr, curr, out=cum.max_curr)
+
+    of = flags.outputflags
+    if of.write_cur_maps or of.write_cum_cur_map_only:
+        with CSTIMER("write cumulative current maps"):
+            out.write_cum_maps(cum, gmap, cfg, hbmeta, of.write_max_cur_maps,
+                               of.write_cum_cur_map_only)
+
+    return np.column_stack([np.asarray(points_unique, dtype), res])

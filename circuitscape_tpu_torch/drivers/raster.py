@@ -5,9 +5,9 @@ src/raster/pairwise.jl:14-269 (raster_pairwise, the no-polygons and
 focal-region paths, exclude-pair generation).  Short-circuit polygons
 run on the stencil path as a projector; focal regions (a point file
 with repeated ids) solve all pairs as one batched stencil solve with a
-per-pair projector.  The reference's per-pair host loop, which the JAX
-package keeps for small grids and direct solvers, needs the general
-sparse-graph tier (ROADMAP queue 1 item 9).
+per-pair projector above CS_PAIRWISE_DEVICE_MIN cells with cg+amg, and
+otherwise pair by pair, each pair's graph rebuilt with its two regions
+merged (the reference's loop, kept by the JAX package).
 """
 
 from __future__ import annotations
@@ -59,8 +59,9 @@ def _pt_file_no_polygons_path(rasterdata, flags, cfg, dtype, device):
 
 def _pt_file_polygons_path(rasterdata, flags, cfg, dtype, device):
     """The point file holds focal regions (src/raster/pairwise.jl:72-135):
-    every pair solves on the device with its own merge of the two
-    regions (_regions_device_path)."""
+    every pair solves with its own merge of the two regions, in one
+    batched device solve (_regions_device_path) or, where that declines,
+    pair by pair on a rebuilt graph (compute_graph_data_polygons)."""
     gmap = rasterdata.cellmap
     points_rc = rasterdata.points_rc
     included_pairs = rasterdata.included_pairs
@@ -75,10 +76,26 @@ def _pt_file_polygons_path(rasterdata, flags, cfg, dtype, device):
     npts = len(pts)
     resistances = -np.ones((npts, npts), dtype)
 
-    cslog.info("Total number of pair solves = %s", npts * (npts - 1) // 2)
+    n = npts * (npts - 1) // 2
+    cslog.info("Total number of pair solves = %s", n)
+    exclude_set = set(exclude_pairs)
     with CSTIMER("solve pairwise resistances"):
-        _regions_device_path(rasterdata, flags, cfg, dtype, pts,
-                             set(exclude_pairs), cum, resistances, device)
+        done = _regions_device_path(rasterdata, flags, cfg, dtype, pts,
+                                    exclude_set, cum, resistances, device)
+        k = 1
+        for i in range(0 if done else npts):
+            for j in range(i + 1, npts):
+                pt1, pt2 = pts[i], pts[j]
+                cslog.info("Solving pair %s of %s", k, n)
+                k += 1
+                if (pt1, pt2) in exclude_set or (pt2, pt1) in exclude_set:
+                    continue
+                graphdata = compute_graph_data_polygons(
+                    rasterdata, flags, pt1, pt2, cum, cfg, dtype)
+                pairwise_resistance = single_ground_all_pairs(
+                    graphdata, flags, cfg, device, log=False)
+                resistances[i, j] = resistances[j, i] = \
+                    pairwise_resistance[1, 2]
 
     of = flags.outputflags
     if of.write_cur_maps or of.write_cum_cur_map_only:
@@ -159,9 +176,9 @@ def _regions_device_path(rasterdata, flags, cfg, dtype, pts, exclude_set,
     and one row of a per-column PolyProjector that merges its two focal
     regions (on top of the polygons).  Resistances are X[dst] - X[src];
     current and voltage maps are zero outside the pair's merged
-    component.  Grids below CS_PAIRWISE_DEVICE_MIN cells and solvers
-    other than cg+amg take the JAX package's per-pair host loop, which
-    needs the general sparse-graph tier: they raise."""
+    component.  Returns True when it solved the job, False for grids
+    below CS_PAIRWISE_DEVICE_MIN cells and solvers other than cg+amg,
+    which take the per-pair loop."""
     from ..solve.dispatch import SolverFailedError
     from ..solve.prepare import prepare_stencil_solver_from_gmap
     from ..solve.stencil import (build_poly_projector_rows,
@@ -170,12 +187,7 @@ def _regions_device_path(rasterdata, flags, cfg, dtype, pts, exclude_set,
     gmap = rasterdata.cellmap
     min_cells = int(os.environ.get("CS_PAIRWISE_DEVICE_MIN", "40000"))
     if cfg.solver != "cg+amg" or gmap.size < min_cells:
-        raise NotImplementedError(
-            "focal-region jobs off the stencil device path (solver "
-            f"{cfg.solver}, or grids below CS_PAIRWISE_DEVICE_MIN="
-            f"{min_cells} cells) take the per-pair general sparse-graph "
-            "path, which is not carried by circuitscape_tpu_torch yet "
-            "(ROADMAP queue 1 item 9)")
+        return False
 
     of = flags.outputflags
     H, W = gmap.shape
@@ -190,7 +202,7 @@ def _regions_device_path(rasterdata, flags, cfg, dtype, pts, exclude_set,
     with CSTIMER("construct pair node maps"):
         jobs, labels = _region_jobs(rasterdata, flags, pts, exclude_set)
     if not jobs:
-        return
+        return True
 
     need_cur = (of.write_cur_maps or of.write_cum_cur_map_only or
                 of.write_max_cur_maps)
@@ -265,6 +277,33 @@ def _regions_device_path(rasterdata, flags, cfg, dtype, pts, exclude_set,
                 if of.write_volt_maps:
                     out.write_grid(volt_h[col][:H, :W].copy(), name, cfg,
                                    rasterdata.hbmeta, voltage=True)
+    return True
+
+
+def compute_graph_data_polygons(rasterdata, flags, pt1, pt2, cum, cfg, dtype):
+    """One focal-region pair's problem: the two regions merged into the
+    polygon map, the graph rebuilt on it (src/raster/pairwise.jl:148-190)."""
+    gmap = rasterdata.cellmap
+    polymap = rasterdata.polymap
+    points_rc = rasterdata.points_rc
+
+    newpoly = build.create_new_polymap(gmap, polymap, points_rc, pt1, pt2)
+    nodemap = build.construct_node_map(gmap, newpoly)
+    a = build.construct_graph(gmap, nodemap, flags.avg_res,
+                              flags.four_neighbors)
+    G = build.laplacian(a)
+    cc = build.components(a)
+
+    pts = points_rc[2]
+    x = int(np.nonzero(pts == pt1)[0][0])
+    y = int(np.nonzero(pts == pt2)[0][0])
+    c1 = nodemap[points_rc[0][x] - 1, points_rc[1][x] - 1]
+    c2 = nodemap[points_rc[0][y] - 1, points_rc[1][y] - 1]
+    points = np.asarray([c1, c2], np.int64)
+
+    return GraphProblem(G, cc, points, np.asarray([pt1, pt2], np.int64),
+                        [], nodemap, newpoly, rasterdata.hbmeta, gmap, cum,
+                        get_solver(cfg))
 
 
 class LazyStencilGraph:

@@ -168,6 +168,17 @@ def components(a: sp.spmatrix):
     return np.split(order, np.cumsum(counts)[:-1])
 
 
+def construct_local_node_map(nodemap: np.ndarray, component: np.ndarray,
+                             polymap: np.ndarray) -> np.ndarray:
+    """Component-local node map: rank of node id within the sorted
+    component, 1-based (src/utils.jl:8-30)."""
+    local = np.zeros_like(nodemap)
+    comp_sorted = np.sort(np.asarray(component))
+    mask = np.isin(nodemap, comp_sorted)
+    local[mask] = np.searchsorted(comp_sorted, nodemap[mask]) + 1
+    return local
+
+
 def create_new_polymap(gmap: np.ndarray, polymap: np.ndarray, points_rc,
                        pt1=0, pt2=0, point_map=None) -> np.ndarray:
     """Merge focal points or regions into the polygon map

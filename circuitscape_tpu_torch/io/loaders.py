@@ -1,9 +1,7 @@
-"""Input data loaders: cell maps, polygons, focal points, advanced-mode
-source/ground maps, include/exclude pairs.
+"""Input data loaders: cell maps, polygons, focal points, sources/grounds,
+include/exclude pairs, network edge lists.
 
-Counterpart of circuitscape_tpu/io/loaders.py, reduced to what the
-raster scenarios need; network edge lists are not carried yet (ROADMAP
-queue 1 item 9).
+Counterpart of circuitscape_tpu/io/loaders.py.
 Parity reference: src/io.jl:1-556.  Conventions preserved from the
 reference: node maps use 0 for "no node" and 1-based node numbers;
 points_rc holds 1-based (row, col, point_id) triples; -9999 is the
@@ -35,6 +33,16 @@ class IncludeExcludePairs:
 
 
 @dataclass
+class NetworkData:
+    """src/io.jl:15-20; coords is (i, j, conductance) with 1-based ids."""
+
+    coords: tuple
+    fp: np.ndarray
+    source_map: np.ndarray
+    ground_map: np.ndarray
+
+
+@dataclass
 class RasterData:
     """src/io.jl:37-46."""
 
@@ -52,6 +60,36 @@ def _readdlm(path: str, dtype=np.float64) -> np.ndarray:
     with open_maybe_gzip(path, "rt") as f:
         text = f.read()
     return np.loadtxt(_io.StringIO(text), dtype=dtype, ndmin=2)
+
+
+def load_graph(path: str, dtype=np.float64):
+    """Edge-list loader with 0-based -> 1-based renumbering
+    (src/io.jl:48-72)."""
+    g = _readdlm(path, np.float64)
+    i = g[:, 0].astype(np.int64)
+    j = g[:, 1].astype(np.int64)
+    v = g[:, 2].astype(dtype)
+    min_node = min(i.min(), j.min())
+    if min_node > 1:
+        raise ValueError(
+            f"Your resistance file starts counting nodes from {min_node}. "
+            "Node numbering must start from 0 or 1."
+        )
+    starts_from_zero = min_node == 0
+    if starts_from_zero:
+        cslog.info("Node numbering starts from 1, not 0. "
+                   "This will be reflected in the outputs.")
+        i = i + 1
+        j = j + 1
+    return i, j, v, starts_from_zero
+
+
+def read_focal_points(path: str) -> np.ndarray:
+    """src/io.jl:74-82: 1-column node list; 0-based shifted up."""
+    ret = _readdlm(path).ravel().astype(np.int64)
+    if ret.min() == 0:
+        ret = ret + 1
+    return ret
 
 
 def read_point_strengths(path: str, starts_from_zero: bool, dtype=np.float64):
@@ -268,6 +306,26 @@ def apply_mask(cellmap: np.ndarray, mask_file: str, hbmeta: RasterMeta):
     mask = read_polymap(mask_file, hbmeta, dtype=None)
     mask = (mask > 0).astype(cellmap.dtype)
     cellmap *= mask
+
+
+def get_network_data(cfg, dtype=np.float64) -> NetworkData:
+    """src/io.jl:387-418."""
+    is_pairwise = cfg.scenario == "pairwise"
+    i, j, v, starts_from_zero = load_graph(cfg.habitat_file, dtype)
+    if cfg.habitat_map_is_resistances:
+        v = 1.0 / v
+
+    if is_pairwise:
+        fp = read_focal_points(cfg.point_file)
+        source_list = np.zeros((0, 0), dtype)
+        ground_list = np.zeros((0, 0), dtype)
+    else:
+        fp = np.zeros(0, np.int64)
+        source_list = read_point_strengths(cfg.source_file,
+                                           starts_from_zero, dtype)
+        ground_list = read_point_strengths(cfg.ground_file,
+                                           starts_from_zero, dtype)
+    return NetworkData((i, j, v), fp, source_list, ground_list)
 
 
 def load_raster_data(cfg, dtype=np.float64) -> RasterData:

@@ -6,8 +6,8 @@ reference: src/io.jl:113-157 (file sniffing), :517-555 (read_raster:
 nodata -> -9999 normalization, NaN -> -9999), src/out.jl:485-531
 (write_raster).  GeoTIFF, ENVI and EHdr inputs and GeoTIFF output are
 not carried yet (ROADMAP queue 1 item 10) and raise
-NotImplementedError; the ASC body is always the Python formatter (the
-JAX package's native one is not carried, item 10).
+NotImplementedError.  The ASC body is written by the native formatter
+(io/fastio.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -156,7 +156,9 @@ def grid_reader(path: str, dtype=np.float64):
 def write_aagrid(path: str, arr: np.ndarray, meta_transform, nodata=-9999.0):
     """Write an ESRI ASCII grid in the GDAL AAIGrid layout: the header,
     then one "%.12g" value per cell (12 significant digits, ~1e-12
-    relative round-trip)."""
+    relative round-trip), the body formatted by the native writer
+    (io/fastio.py; C printf, the same text as Python's "%.12g")."""
+    from . import fastio
     nrows, ncols = arr.shape
     xll = meta_transform[0]
     yll = meta_transform[3] - nrows * meta_transform[1]
@@ -166,7 +168,6 @@ def write_aagrid(path: str, arr: np.ndarray, meta_transform, nodata=-9999.0):
         fv = float(v)
         return str(int(fv)) if fv == int(fv) else repr(fv)
 
-    row_fmt = " ".join(["%.12g"] * ncols)
     with open(path, "w") as f:
         f.write(f"ncols        {ncols}\n")
         f.write(f"nrows        {nrows}\n")
@@ -174,10 +175,7 @@ def write_aagrid(path: str, arr: np.ndarray, meta_transform, nodata=-9999.0):
         f.write(f"yllcorner    {fmt_hdr(yll)}\n")
         f.write(f"cellsize     {fmt_hdr(cellsize)}\n")
         f.write(f"NODATA_value  {fmt_hdr(nodata)}\n")
-        # one C-level %-format per row
-        for row in np.asarray(arr, np.float64):
-            f.write(row_fmt % tuple(row))
-            f.write("\n")
+    fastio.write_asc_body(path, arr)
 
 
 def write_raster(fn_prefix: str, array: np.ndarray, wkt: str, transform,

@@ -2,8 +2,9 @@
 
 Counterpart of circuitscape_tpu/run.py.  Parity reference: src/run.jl:1-67
 (compute, _run, _compute).  Runs on the GPU ("cuda") unless the caller
-passes device="cpu"; scenarios this package does not carry yet raise
-NotImplementedError naming their ROADMAP item.
+passes device="cpu"; what this package does not carry yet (GeoTIFF,
+grids above 1.2M cells on the stencil path) raises NotImplementedError
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -49,6 +50,10 @@ def _run(cfg: CSConfig, device: torch.device):
     cslog.update_logging(cfg)
     write_config(cfg)
     dtype = np.float32 if cfg.precision == "single" else np.float64
+    if dtype == np.float32 and cfg.solver == "mklpardiso":
+        cslog.warn("Pardiso solver works only in double precision. "
+                   "Switching precision to double.")
+        dtype = np.float64
     cslog.info("Precision used: %s", cfg.precision)
     CSTIMER.reset()
     stats.reset()
@@ -60,17 +65,18 @@ def _run(cfg: CSConfig, device: torch.device):
 
 
 def _compute(cfg: CSConfig, dtype, device):
-    """src/run.jl:47-67, for the scenarios this package carries."""
+    """src/run.jl:47-67."""
     from .drivers.advanced import raster_advanced
+    from .drivers.network import network_advanced, network_pairwise
     from .drivers.onetoall import raster_one_to_all
     from .drivers.raster import raster_pairwise
 
-    if cfg.data_type != "raster":
-        raise NotImplementedError(
-            "network jobs are not carried by circuitscape_tpu_torch yet "
-            "(ROADMAP queue 1 item 9)")
+    if cfg.data_type == "raster":
+        if cfg.scenario == "pairwise":
+            return raster_pairwise(cfg, dtype, device)
+        if cfg.scenario == "advanced":
+            return raster_advanced(cfg, dtype, device)
+        return raster_one_to_all(cfg, dtype, device)
     if cfg.scenario == "pairwise":
-        return raster_pairwise(cfg, dtype, device)
-    if cfg.scenario == "advanced":
-        return raster_advanced(cfg, dtype, device)
-    return raster_one_to_all(cfg, dtype, device)
+        return network_pairwise(cfg, dtype, device)
+    return network_advanced(cfg, dtype, device)

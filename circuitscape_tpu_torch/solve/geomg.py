@@ -338,18 +338,22 @@ def _cheb_smooth(L: GeoMgLevel, b, x):
     return x
 
 
+def full_precision_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in full float32: a float32 matmul on the card may use TF32
+    (about 3 decimal digits), which would truncate a coarse correction
+    the way bf16 MXU passes did on the TPU.  Both switches are set off
+    here, where the only matmuls of the solves (the coarse
+    pseudo-inverses of the geometric and the algebraic V-cycle) run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return a @ b
+
+
 def _vcycle(hier: GeoMgHierarchy, lvl: int, b):
     if lvl == len(hier.levels):
         B = b.shape[0]
         hc, wc = hier.coarse_shape
-        # full-f32 coarse solve: a float32 matmul on the card may use
-        # TF32 (about 3 decimal digits), which would truncate the
-        # correction the way bf16 MXU passes did on the TPU; both
-        # switches are set off here, where the only matmul of the solve
-        # runs
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        x = b.reshape(B, hc * wc) @ hier.coarse_pinv.T
+        x = full_precision_matmul(b.reshape(B, hc * wc), hier.coarse_pinv.T)
         return x.reshape(B, hc, wc)
     L = hier.levels[lvl]
     x = _cheb_smooth(L, b, None)        # pre-smooth from zero

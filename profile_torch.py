@@ -2,7 +2,8 @@
 
     python3 profile_torch.py [--size 1000] [--points 32] [--maps]
                              [--polygons | --regions N | --advanced |
-                              --one-to-all | --all-to-one] [--trace PATH]
+                              --one-to-all | --all-to-one | --network]
+                             [--trace PATH]
 
 Runs the bench.py job (seed 42, size x size conductance raster with ~10%
 NODATA, `points` focal points, cg+amg, single precision, shortcut mode;
@@ -11,7 +12,10 @@ pair; with --polygons, chip_smoke.py's 20 short-circuit polygons; with
 --regions N, its focal-region job with N regions on points 1..N; with
 --advanced, its advanced job on the 32 points: 16 sources, 8 finite and
 8 direct grounds, voltage and current maps; with --one-to-all or
---all-to-one, that scenario on the points, maps off unless --maps)
+--all-to-one, that scenario on the points, maps off unless --maps;
+with --network, chip_smoke.py's network pairwise job, the 100,000-node
+lattice with 20 focal nodes, on the iterative tier of the general
+sparse-graph path: CS_NETWORK_DIRECT_MAX=0)
 through circuitscape_tpu_torch.compute(..., "cuda"): one warm run, then
 one run under torch.profiler.  Prints, as JSON lines:
   - the job's wall time, host-timer sections and solver stats;
@@ -67,6 +71,9 @@ def main():
                     const="one-to-all", default="pairwise")
     ap.add_argument("--all-to-one", dest="scenario", action="store_const",
                     const="all-to-one")
+    ap.add_argument("--network", action="store_true",
+                    help="chip_smoke.py's network pairwise job instead, "
+                    "on the iterative tier")
     ap.add_argument("--trace", default="",
                     help="write the Chrome trace to this path")
     args = ap.parse_args()
@@ -76,7 +83,8 @@ def main():
 
     import circuitscape_tpu_torch as cst
     from chip_smoke import (card_line, make_advanced_job, make_job,
-                            make_polygon_job, make_regions_job)
+                            make_network_job, make_polygon_job,
+                            make_regions_job)
     from circuitscape_tpu_torch import stats
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
     from circuitscape_tpu_torch.timer import CSTIMER
@@ -93,6 +101,9 @@ def main():
             cfg = make_regions_job(d, args.size, args.size, args.regions)
         elif args.advanced:
             cfg, _, _, _ = make_advanced_job(d, args.size, args.size)
+        elif args.network:
+            cfg = make_network_job(d)
+            os.environ["CS_NETWORK_DIRECT_MAX"] = "0"
         else:
             cfg, _ = make_job(d, args.size, args.size, args.points)
             cfg["scenario"] = args.scenario
@@ -132,8 +143,8 @@ def main():
     print(json.dumps({"size": args.size, "points": args.points,
                       "maps": args.maps, "polygons": args.polygons,
                       "regions": args.regions,
-                      "scenario": "advanced" if args.advanced
-                      else args.scenario,
+                      "scenario": "advanced" if args.advanced else
+                      "network" if args.network else args.scenario,
                       "wall_s": wall, "timers_s": timers,
                       "cg_iters": st.get("cg_iters"),
                       "solve_s": st.get("solve_s")}))

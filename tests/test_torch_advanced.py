@@ -512,25 +512,27 @@ _MG3 = {f"{k}_file": f"input/raster/advanced/3/{v}" for k, v in (
 
 @pytest.mark.parametrize("n", range(1, 7))
 def test_golden_advanced(tmp_path, monkeypatch, n):
-    """The advanced goldens on the stencil device path
-    (CS_ADVANCED_DEVICE_MIN = 1, solver = cg+amg), which the JAX package
-    takes for all six: every written grid within a sum-of-squares
-    difference of 1e-6 of the golden.  At the default threshold the
-    same jobs take the general path and raise naming item 9."""
+    """The advanced goldens at the default threshold (the per-component
+    loop on the general sparse-graph tier) and on the stencil device
+    path (CS_ADVANCED_DEVICE_MIN = 1, solver = cg+amg), which the JAX
+    package takes for all six: every written grid within a sum-of-squares
+    difference of 1e-6 of the golden, on both paths."""
     monkeypatch.chdir(DATA_DIR)
-    cfg = cst.parse_config(
-        f"input/raster/advanced/{n}/mgVerify{n}.ini").to_dict()
-    cfg.update(solver="cg+amg", suppress_messages="True",
-               output_file=str(tmp_path / f"mgVerify{n}.out"),
-               **(_MG3 if n == 3 else {}))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cst.compute(cfg, device="cpu")
-    monkeypatch.setenv("CS_ADVANCED_DEVICE_MIN", "1")
-    v = cst.compute(cfg, device="cpu")
-    assert np.all(np.isfinite(v))
-    grids = sorted(f for f in os.listdir(tmp_path) if f.endswith(".asc"))
-    assert grids
-    for f in grids:
-        d2 = float(((read_aagrid(tmp_path / f) -
-                     read_aagrid(os.path.join(VERIFY, f))) ** 2).sum())
-        assert d2 < 1e-6, f"{f}: grid sum-sq diff {d2}"
+    for path, env in (("general", None), ("device", "1")):
+        if env:
+            monkeypatch.setenv("CS_ADVANCED_DEVICE_MIN", env)
+        od = tmp_path / path
+        od.mkdir()
+        cfg = cst.parse_config(
+            f"input/raster/advanced/{n}/mgVerify{n}.ini").to_dict()
+        cfg.update(solver="cg+amg", suppress_messages="True",
+                   output_file=str(od / f"mgVerify{n}.out"),
+                   **(_MG3 if n == 3 else {}))
+        v = cst.compute(cfg, device="cpu")
+        assert np.all(np.isfinite(v))
+        grids = sorted(f for f in os.listdir(od) if f.endswith(".asc"))
+        assert grids
+        for f in grids:
+            d2 = float(((read_aagrid(od / f) -
+                         read_aagrid(os.path.join(VERIFY, f))) ** 2).sum())
+            assert d2 < 1e-6, f"{path} {f}: grid sum-sq diff {d2}"

@@ -85,45 +85,81 @@ def test_golden_sgverify4_maps_off(tmp_path, monkeypatch):
         label="sgVerify4 3columns")
 
 
+def _same_outputs(tmp_path, rt, rj):
+    """The two packages' results (to 1e-5 of max) and every file they
+    wrote (t_* against j_*: the same names, numbers to 1e-5 of max)."""
+    rt, rj = np.asarray(rt), np.asarray(rj)
+    assert rt.shape == rj.shape
+    assert np.abs(rt - rj).max() <= 1e-5 * max(np.abs(rj).max(), 1e-30)
+    names = sorted(f[2:] for f in os.listdir(tmp_path) if f.startswith("t_"))
+    assert names == sorted(f[2:] for f in os.listdir(tmp_path)
+                           if f.startswith("j_"))
+    for f in names:
+        if f.endswith(".out") and "resistances" not in f:
+            continue   # the INI echo
+        skip = 6 if f.endswith(".asc") else 0
+        a = np.loadtxt(tmp_path / f"t_{f}", skiprows=skip, ndmin=2)
+        b = np.loadtxt(tmp_path / f"j_{f}", skiprows=skip, ndmin=2)
+        assert a.shape == b.shape, f
+        assert np.abs(a - b).max() <= 1e-5 * max(np.abs(b).max(), 1e-30), f
+    return names
+
+
+def _run_both(tmp_path, cfg):
+    rt = cst.compute(dict(cfg, output_file=str(tmp_path / "t_.out")),
+                     device="cpu")
+    rj = cs.compute(dict(cfg, output_file=str(tmp_path / "j_.out")))
+    return _same_outputs(tmp_path, rt, rj)
+
+
 @pytest.mark.parametrize("override,item", [
     # below CS_ADVANCED_DEVICE_MIN / CS_ONETOALL_DEVICE_MIN (40000 cells)
-    # the JAX package solves these on its general sparse-graph path
+    # both packages solve these on the general sparse-graph tier
     ({"scenario": "advanced"}, "item 9"),
     ({"scenario": "one-to-all"}, "item 9"),
     ({"scenario": "all-to-one"}, "item 9"),
     ({"data_type": "network"}, "item 9"),
     ({"solver": "cholmod"}, "item 9"),
-    # maps on: a 20x20 grid is below CS_PAIRWISE_DEVICE_MIN, so the JAX
-    # package takes its general sparse-graph path
+    # maps on: a 20x20 grid is below CS_PAIRWISE_DEVICE_MIN, so both
+    # packages take the general sparse-graph path
     ({"write_cur_maps": "True"}, "item 9"),
     ({"write_volt_maps": "True"}, "item 9"),
 ])
 def test_uncarried_scenarios_raise(tmp_path, override, item):
+    """Jobs that ROADMAP queue 1 item 9 (the general sparse-graph tier)
+    carried: each runs and matches the JAX package, its result and every
+    file it writes (a network job: a 400-node lattice network, 3 focal
+    nodes, in place of the raster)."""
     cfg = _bench_job(str(tmp_path), 20, 20, 3)
-    cfg.update(override, output_file=str(tmp_path / "x.out"))
+    cfg.update(override)
     if override.get("scenario") == "advanced":
         # the focal points as sources, point 3 as a direct ground
         pts = np.load(tmp_path / "points.npy")
         np.save(tmp_path / "src.npy", np.where(pts < 3, pts, 0))
         np.save(tmp_path / "gnd.npy", np.where(pts == 3, 0.0, -9999.0))
         cfg.update(source_file=str(tmp_path / "src.npy"),
-                   ground_file=str(tmp_path / "gnd.npy"))
-    with pytest.raises(NotImplementedError, match=item):
-        cst.compute(cfg, device="cpu")
+                   ground_file=str(tmp_path / "gnd.npy"),
+                   write_volt_maps="True", write_cur_maps="True")
+    if override.get("data_type") == "network":
+        from chip_smoke import make_network_job
+        cfg = dict(make_network_job(str(tmp_path), n=400, nfocal=3),
+                   precision="double")
+    _run_both(tmp_path, cfg)
 
 
 @pytest.mark.parametrize("case", ["regions_below_threshold",
                                   "polygons_cholmod"])
 def test_uncarried_polygon_jobs_raise(tmp_path, case):
-    """Jobs the JAX package sends to its general sparse-graph tier: a
-    focal-region job below CS_PAIRWISE_DEVICE_MIN cells (its per-pair
-    host loop), and a polygon job with a direct solver."""
+    """Jobs the general sparse-graph tier carries: a focal-region job
+    below CS_PAIRWISE_DEVICE_MIN cells (the per-pair loop), and a polygon
+    job with the direct solver; each matches the JAX package."""
     cfg = _bench_job(str(tmp_path), 20, 20, 3)
     if case == "regions_below_threshold":
         pts = np.load(tmp_path / "points.npy")
         r, c = np.argwhere(pts == 1)[0]
         pts[max(r - 1, 0):r + 2, max(c - 1, 0):c + 2] = 1
         np.save(tmp_path / "points.npy", pts)
+        cfg.update(write_cur_maps="True")
     else:
         poly = np.zeros((20, 20))
         poly[2:6, 3:8] = 1
@@ -131,9 +167,7 @@ def test_uncarried_polygon_jobs_raise(tmp_path, case):
         cfg.update(use_polygons="True", polygon_file=str(tmp_path /
                                                          "poly.npy"),
                    solver="cholmod")
-    cfg.update(output_file=str(tmp_path / "x.out"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cst.compute(cfg, device="cpu")
+    _run_both(tmp_path, cfg)
 
 
 @pytest.mark.parametrize("ini,item", [
@@ -141,14 +175,18 @@ def test_uncarried_polygon_jobs_raise(tmp_path, case):
     ("input/raster/pairwise/10/sgVerify10.ini", "item 9"),
 ])
 def test_uncarried_corpus_jobs_raise(tmp_path, monkeypatch, ini, item):
-    """Focal-region goldens below CS_PAIRWISE_DEVICE_MIN: the JAX package
-    runs them pair by pair on its general tier."""
+    """Focal-region goldens below CS_PAIRWISE_DEVICE_MIN, maps off: both
+    packages run them pair by pair on the general tier, and the port
+    matches the golden resistances at the reference's tolerance."""
     monkeypatch.chdir(DATA_DIR)
     cfg = cst.parse_config(ini).to_dict()
     cfg.update(write_volt_maps="False", write_cur_maps="False",
                output_file=str(tmp_path / "x.out"))
-    with pytest.raises(NotImplementedError, match=item):
-        cst.compute(cfg, device="cpu")
+    r = cst.compute(cfg, device="cpu")
+    stem = os.path.basename(ini)[:-4]
+    check_resistances(readdlm(f"{DATA_DIR}/output_verify/"
+                              f"{stem}_resistances.out"), r, 1e-6,
+                      label=stem)
 
 
 def _exclude_job(tmp_path):
@@ -161,12 +199,14 @@ def _exclude_job(tmp_path):
 
 def test_exclude_pairs_raise(tmp_path):
     """Exclude pairs turn the shortcut off; below CS_PAIRWISE_DEVICE_MIN
-    cells the JAX package takes its general sparse-graph path, which is
-    not carried yet."""
+    cells both packages take the general sparse-graph path: every pair
+    but the excluded one solves, as in the JAX package."""
     cfg = _exclude_job(tmp_path)
-    cfg.update(output_file=str(tmp_path / "x.out"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cst.compute(cfg, device="cpu")
+    rt = cst.compute(dict(cfg, output_file=str(tmp_path / "t.out")),
+                     device="cpu")
+    rj = cs.compute(dict(cfg, output_file=str(tmp_path / "j.out")))
+    assert rt[1, 2] == rt[2, 1] == -1
+    assert np.max(np.abs(rt - rj) / np.maximum(np.abs(rj), 1e-30)) <= 1e-5
 
 
 def test_exclude_pairs_match_jax(tmp_path, monkeypatch):

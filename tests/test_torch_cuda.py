@@ -300,3 +300,56 @@ def test_scenario_cuda_matches_cpu(dev, tmp_path, scenario):
         ga = np.loadtxt(tmp_path / "cuda" / f, skiprows=6)
         gc = np.loadtxt(tmp_path / "cpu" / f, skiprows=6)
         assert np.abs(ga - gc).max() <= TOL * np.abs(gc).max(), f
+
+
+def test_native_libraries_build(dev):
+    """Both host libraries build from native/*.cpp on this machine and
+    load: the Cholesky (with or without a BLAS) and the text writer."""
+    from circuitscape_tpu_torch.io import fastio
+    from circuitscape_tpu_torch.solve import native_chol
+    assert native_chol._load() is not None and fastio.load() is not None
+
+
+def _network_laplacian(side=20, seed=3):
+    """A side x side lattice network's Laplacian (a few hundred nodes),
+    regularized as the general tier regularizes it in float32."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    n = side * side
+    i0 = np.arange(n)
+    E = np.vstack([np.column_stack([i0[i0 + o < n], (i0 + o)[i0 + o < n]])
+                   for o in (1, side)])
+    A = sp.coo_matrix((rng.uniform(0.5, 3.0, len(E)), (E[:, 0], E[:, 1])),
+                      shape=(n, n)).tocsr()
+    A = A + A.T
+    L = (sp.diags(np.asarray(A.sum(axis=1)).ravel()) - A).tocsr()
+    L = L.astype(np.float32)
+    L.data = L.data + np.finfo(np.float32).eps * np.linalg.norm(L.data)
+    return L
+
+
+@pytest.mark.parametrize("B", [1, 3, 32])
+def test_cg_context_cuda_matches_cpu(dev, B):
+    """CGContext (ELL PCG with the SA-AMG V-cycle) on the card against
+    the CPU at 400 nodes: pair solutions, normalized to their sources,
+    within 1e-5 of max, and CG iterations within one of the CPU's."""
+    from circuitscape_tpu_torch import stats
+    from circuitscape_tpu_torch.solve.dispatch import CGContext
+    L = _network_laplacian()
+    n = L.shape[0]
+    rng = np.random.default_rng(B)
+    rhs = np.zeros((n, B), np.float32)
+    src = rng.choice(n, B)
+    for c in range(B):
+        dst = (src[c] + 1 + rng.integers(n - 1)) % n
+        rhs[src[c], c], rhs[dst, c] = -1, 1
+    out, iters = {}, {}
+    for d in (dev, "cpu"):
+        stats.reset()
+        x = CGContext(L, np.float32, d).solve(rhs)
+        out[str(d)] = x - x[src, np.arange(B)][None, :]
+        iters[str(d)] = stats.JOB["cg_iters"]
+    g, c = out[str(dev)], out["cpu"]
+    assert np.all(np.isfinite(g))
+    assert np.abs(g - c).max() <= TOL * np.abs(c).max()
+    assert abs(iters[str(dev)] - iters["cpu"]) <= 1

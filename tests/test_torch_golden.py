@@ -1,0 +1,103 @@
+"""The golden corpus through circuitscape_tpu_torch on the CPU: raster
+pairwise and advanced, on both solver tiers, at the default thresholds,
+at the tolerances of tests/test_golden.py (resistances elementwise within
+sqrt(1e-6), every written grid within a sum-of-squares difference of
+1e-6, network current files by sorted rows).
+
+Outputs go to tmp_path (output_file rewritten), never to tests/data/
+output, which tests/test_golden.py and tests/test_golden_mesh.py wipe.
+Two INIs name GeoTIFF inputs (ROADMAP queue 1 item 10): sgVerify1 runs
+with polygons.asc, the AAGrid twin of its polygon file, and mgVerify3
+with the AAGrid twins in its folder.  One-to-all, all-to-one and
+network goldens: tests/test_torch_golden_o2a.py, test_torch_network.py.
+"""
+
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import circuitscape_tpu_torch as cst
+from golden_utils import (DATA_DIR, _shift_network_name, check_resistances,
+                          read_aagrid, readdlm)
+
+torch.set_num_threads(1)
+
+VERIFY = os.path.join(DATA_DIR, "output_verify")
+SOLVERS = ["cg+amg", "cholmod"]
+TOL = 1e-6
+
+# GeoTIFF inputs replaced by their AAGrid twins (the same grids)
+_TWINS = {
+    "sgVerify1": {"polygon_file": "input/raster/pairwise/1/polygons.asc"},
+    "mgVerify3": {f"{k}_file": f"input/raster/advanced/3/{v}" for k, v in (
+        ("habitat", "cellmap10x10.asc"), ("source", "sources10x10.asc"),
+        ("ground", "grounds10x10.asc"), ("polygon", "regions_grid.asc"))},
+}
+
+
+def run_golden(tmp_path, monkeypatch, ini, solver):
+    """Run a corpus INI (cwd tests/data) through the port on the CPU with
+    the solver overridden and outputs in tmp_path; returns (stem,
+    result)."""
+    monkeypatch.chdir(DATA_DIR)
+    stem = os.path.basename(ini)[:-4]
+    cfg = cst.parse_config(ini).to_dict()
+    cfg.update(solver=solver, suppress_messages="True",
+               output_file=str(tmp_path / f"{stem}.out"),
+               **_TWINS.get(stem, {}))
+    return stem, cst.compute(cfg, device="cpu")
+
+
+def compare_outputs(outdir, stem, is_single=False):
+    """golden_utils.compare_all_output on outdir: grids by sum of
+    squares, network node/branch text by sorted rows with the goldens'
+    0-based ids shifted.  Returns the number of files compared."""
+    tol = 1e-4 if is_single else 1e-6
+    n = 0
+    for path in sorted(glob.glob(os.path.join(str(outdir), f"{stem}_*"))):
+        f = os.path.basename(path)
+        if "resistances" in f:
+            continue
+        if f.endswith("asc"):
+            gold = os.path.join(VERIFY, f)
+            assert os.path.exists(gold), f"no golden for generated {f}"
+            d2 = float(((read_aagrid(path) - read_aagrid(gold)) ** 2).sum())
+            assert d2 < tol, f"{f}: grid sum-sq diff {d2}"
+            n += 1
+        elif "Network" in f and f.endswith(".txt"):
+            mine = readdlm(path)
+            gold = readdlm(os.path.join(VERIFY, f if f.startswith("mg")
+                                        else _shift_network_name(f))).copy()
+            shift = 2 if "branch" in f else 1
+            gold[:, :shift] += 1
+            a = mine[np.lexsort(mine.T[::-1])]
+            b = gold[np.lexsort(gold.T[::-1])]
+            assert a.shape == b.shape, f"{f}: {a.shape} vs {b.shape}"
+            d2 = float(((a - b) ** 2).sum())
+            assert d2 < tol, f"{f}: sum-sq diff {d2}"
+            n += 1
+    return n
+
+
+@pytest.mark.parametrize("solver", SOLVERS)
+@pytest.mark.parametrize("i", list(range(1, 18)))
+def test_raster_pairwise(tmp_path, monkeypatch, solver, i):
+    stem, r = run_golden(tmp_path, monkeypatch,
+                         f"input/raster/pairwise/{i}/sgVerify{i}.ini", solver)
+    x = readdlm(os.path.join(VERIFY, f"{stem}_resistances.out"))
+    written = readdlm(str(tmp_path / f"{stem}_resistances.out"))
+    check_resistances(written, r, TOL, label=f"{stem} (written)")
+    check_resistances(x, r, TOL, label=f"{stem} (verify)")
+    compare_outputs(tmp_path, stem)
+
+
+@pytest.mark.parametrize("solver", SOLVERS)
+@pytest.mark.parametrize("i", list(range(1, 7)))
+def test_raster_advanced(tmp_path, monkeypatch, solver, i):
+    stem, v = run_golden(tmp_path, monkeypatch,
+                         f"input/raster/advanced/{i}/mgVerify{i}.ini", solver)
+    assert np.all(np.isfinite(v))
+    assert compare_outputs(tmp_path, stem) > 0

@@ -17,7 +17,8 @@ PKG = os.path.join(ROOT, "circuitscape_tpu_torch")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "profile_torch.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)

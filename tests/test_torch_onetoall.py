@@ -7,10 +7,9 @@ tests/data.
 
 The device paths take grids of at least CS_ONETOALL_DEVICE_MIN cells;
 the jobs here lower it to 1.  Where the JAX package's device path
-declines (merged or repeated points, included pairs), it runs its
-per-point general path, which this package does not carry: the port
-raises naming ROADMAP queue 1 item 9.  Every job writes under
-tmp_path."""
+declines (merged or repeated points, included pairs), both packages
+run the per-point loop on the general sparse-graph tier.  Every job
+writes under tmp_path."""
 
 import os
 
@@ -218,10 +217,11 @@ def _golden(tmp_path, kind, n):
                          [("all_to_one", n) for n in range(1, 13)])
 def test_golden(tmp_path, monkeypatch, kind, n):
     """With CS_ONETOALL_DEVICE_MIN = 1 and solver = cg+amg: the goldens
-    the JAX package solves on its device path pass at the reference's
-    tolerance (results within sqrt(1e-6), written grids within a
-    sum-of-squares difference of 1e-6); the one its device path fails
-    fails here too; every other one raises naming item 9."""
+    the JAX package solves on its device path, and the others (included
+    pairs, repeated ids, merged points), which take the per-point loop
+    on the general sparse-graph tier, pass at the reference's tolerance
+    (results within sqrt(1e-6), written grids within a sum-of-squares
+    difference of 1e-6); the one its device path fails fails here too."""
     monkeypatch.chdir(DATA_DIR)
     monkeypatch.setenv("CS_ONETOALL_DEVICE_MIN", "1")
     stem, cfg = _golden(tmp_path, kind, n)
@@ -229,15 +229,11 @@ def test_golden(tmp_path, monkeypatch, kind, n):
         with pytest.raises(SolverFailedError, match="one-to-all device"):
             cst.compute(cfg, device="cpu")
         return
-    if (kind, n) not in _DEVICE:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            cst.compute(cfg, device="cpu")
-        return
     r = cst.compute(cfg, device="cpu")
     check_resistances(readdlm(os.path.join(VERIFY, f"{stem}_resistances.out")),
                       r, 1e-6, label=stem)
     grids = sorted(f for f in os.listdir(tmp_path) if f.endswith(".asc"))
-    assert grids
+    assert grids or (kind, n) not in _DEVICE
     for f in grids:
         d2 = float(((read_aagrid(tmp_path / f) -
                      read_aagrid(os.path.join(VERIFY, f))) ** 2).sum())
