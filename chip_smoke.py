@@ -26,7 +26,15 @@ Phases (any failure exits non-zero; nothing is caught):
      width) and B = 32 on every level of the advanced job's
      penalty-baked hierarchy (phase 7's ground field coarsened into every
      diagonal), compared per cell: |kernel - plain| <= 1e-5 * (|plain| +
-     max |plain| over unpenalized cells);
+     max |plain| over unpenalized cells); and on every level of the
+     scale job's hierarchy (7040^2, the width where the TPU tiles
+     _kernel and _cheb_kernel by columns, down to 28^2) at its batch
+     (B = 4), each kernel its pair solve launches there, on the scale
+     map's own operator: held against its plain version, timed beside
+     its byte bound (the plain version at 7040^2 and 3520^2, matvec
+     beside the sparse product); then each kernel once at B = 44 on
+     7040^2 (2.18e9 floats a block, past 2^31), its first and last
+     columns against the plain version on those columns;
   3. drive the main path: the bench.py job (seed 42, 1000 x 1000
      conductance raster with ~10% NODATA, 32 focal points, cg+amg,
      single precision, shortcut mode) through compute(..., "cuda"):
@@ -108,7 +116,20 @@ Phases (any failure exits non-zero; nothing is caught):
      to 1e-5 relative, every output file to 1e-5 of its max, and equal
      CG iteration counts or each card pass, replayed on the CPU, within
      one iteration;
-  13. print the kernels line, the card line and, last, the result line.
+  13. (after phase 8) drive the scale job (make_scale_job: bench_scale.py's
+     6930 x 6930 raster, 48M cells, 4 points, cg+amg, single precision,
+     shortcut mode) once with the counters zeroed just before it: the
+     large-grid route (a host-built hierarchy), resistances finite,
+     symmetric and positive, each anchor column's float64 relative
+     residual, recomputed from the solve's output, under 1e-6, matvec
+     and cheb_step launched at 7040^2 and the fused smoother at 3520^2;
+     print its CG iterations per refinement pass, batch width,
+     host-timer sections, peak device memory, wall time and per_job
+     lines; and (in phase 9) a 256 x 256 job with CS_DEVICE_MG_MAX=1
+     (the host-built route on both devices) and a 128 x 4200 job (fine
+     level 128 x 4224) on "cuda" and on "cpu": resistances to 1e-5
+     relative and the same CG iteration count;
+  14. print the kernels line, the card line and, last, the result line.
 
 Exits 2 without printing a result when no CUDA device is available.
 """
@@ -162,6 +183,12 @@ KERNELS = (
     ("cheb_finish", "circuitscape_tpu/solve/pallas_stencil.py:595", 25),
 )
 CG_ITERS = 10     # the bench job's CG iterations (one chunk of 31 pairs)
+# the scale job (bench_scale.py's 48M-cell job, 6930^2 bucketed to
+# 7040^2): its batch (3 anchor columns, padded to 4 by the pair solve),
+# and the batch at which one launch at its fine level moves more than
+# 2^31 floats a block (44 x 7040^2 = 2.18e9)
+SCALE_SIDE, SCALE_HW = 6930, (7040, 7040)
+SCALE_B, SCALE_BIG_B = 4, 44
 PEN_BATCHES = (1, MAIN_B)   # the advanced job's width, and the others'
 SOURCE = "circuitscape_tpu_torch/csrc/stencil_kernels.cu"
 
@@ -391,6 +418,35 @@ def make_network_advanced_job(d, n=100_000, seed=42):
             "suppress_messages": "True"}, E, w, src, gnd
 
 
+def make_scale_job(d, side=SCALE_SIDE):
+    """bench_scale.py's job (the JAX package's 48M-cell single-device
+    run): a side x side raster of conductances uniform(0.5, 3.0) from
+    default_rng(7) with ~10% NODATA and 4 focal points placed as
+    bench_scale.py places them, as NPY files in d; cg+amg, single
+    precision, shortcut mode.  Returns (config dict, gmap)."""
+    rng = np.random.default_rng(7)
+    g = rng.uniform(0.5, 3.0, (side, side))
+    g[rng.random((side, side)) < 0.10] = -9999.0
+    np.save(os.path.join(d, "cell.npy"), g)
+    pts = np.zeros((side, side))
+    placed = 0
+    while placed < 4:
+        r, c = rng.integers(0, side, 2)
+        if g[r, c] > 0 and pts[r, c] == 0:
+            placed += 1
+            pts[r, c] = placed
+    np.save(os.path.join(d, "pts.npy"), pts)
+    del pts
+    np.maximum(g, 0.0, out=g)
+    return {"data_type": "raster", "scenario": "pairwise",
+            "habitat_file": os.path.join(d, "cell.npy"),
+            "habitat_map_is_resistances": "False",
+            "point_file": os.path.join(d, "pts.npy"),
+            "output_file": os.path.join(d, "o.out"),
+            "solver": "cg+amg", "precision": "single",
+            "suppress_messages": "True"}, g
+
+
 def check_resistances(r, label, n=32, merged=False):
     """Finite, symmetric, n x n, positive off the diagonal (>= 0 when
     polygons may merge two points into one node)."""
@@ -418,9 +474,9 @@ def phase_build():
          f"{time.perf_counter() - t:.1f} s")
 
 
-def _inputs(gmap, B, H, W, rng, dev):
-    """A float32 fine operator of an (H, W) crop of gmap, its Dinv, and
-    four random (B, H, W) blocks, on dev."""
+def _crop_operator(gmap, H, W, dev):
+    """A float32 fine operator of an (H, W) crop of gmap (zero-padded
+    where gmap is smaller) and its Dinv, on dev."""
     from circuitscape_tpu_torch.solve.stencil import (
         _to_dtype, stencil_from_gmap_device)
     g = np.zeros((H, W))
@@ -431,10 +487,25 @@ def _inputs(gmap, B, H, W, rng, dev):
     dinv = torch.where(A.diag > 0,
                        1.0 / torch.where(A.diag == 0, 1.0, A.diag),
                        0.0).contiguous()
+    return A, dinv
+
+
+def _inputs(gmap, B, H, W, rng, dev):
+    """_crop_operator's operator and Dinv, and four random (B, H, W)
+    blocks drawn on the host from rng, on dev."""
+    A, dinv = _crop_operator(gmap, H, W, dev)
     blocks = [torch.as_tensor(rng.standard_normal((B, H, W)),
                               dtype=torch.float32, device=dev)
               for _ in range(4)]
     return A, dinv, blocks
+
+
+def _card_blocks(B, H, W, dev, seed, n=4):
+    """n standard normal (B, H, W) float32 blocks drawn on the card (a
+    host draw at the scale job's shapes takes seconds a block)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((B, H, W), generator=gen, device=dev)
+            for _ in range(n)]
 
 
 def _pairs(name, A, dinv, blocks):
@@ -618,6 +689,139 @@ def time_levels(gmap, dev, rate, rows):
                  f"bound {bound:.4f} ms, {100 * bound / ms:.1f}% of bound")
         del A, dinv, blocks
     return times
+
+
+def hierarchy_shapes(H, W, coarse_cells=256, max_levels=12):
+    """The level shapes of a multigrid hierarchy over an (H, W) fine
+    level: the loop of the port's build_geo_mg and build_geo_mg_device."""
+    shapes = []
+    while (H * W > coarse_cells and len(shapes) < max_levels and
+           min(H, W) >= 2):
+        shapes.append((H, W))
+        H, W = -(-H // 2), -(-W // 2)
+    return tuple(shapes)
+
+
+def pair_solve_kernels(shapes):
+    """Per kernel, the level shapes where a pair solve on a hierarchy of
+    these shapes launches it: matvec_pap and matvec (the CG body and its
+    residual replacement) on the fine level, residual_restrict on every
+    level, the fused smoother (cheb_init, residual_init, cheb_finish)
+    where geomg.fused_smoother_supported admits the level, cheb_step and
+    matvec elsewhere."""
+    from circuitscape_tpu_torch.solve.geomg import fused_smoother_supported
+    fused = tuple(s for s in shapes if fused_smoother_supported(s))
+    generic = tuple(s for s in shapes if not fused_smoother_supported(s))
+    return (("matvec", tuple(dict.fromkeys(shapes[:1] + generic))),
+            ("matvec_pap", shapes[:1]), ("cheb_step", generic),
+            ("residual_restrict", shapes), ("cheb_init", fused),
+            ("residual_init", fused), ("cheb_finish", fused))
+
+
+def time_scale_levels(gmap, dev, rate, rows):
+    """Every kernel at the scale job's batch (B = 4) on each level shape
+    of its hierarchy where its pair solve launches it (7040^2: the
+    TPU's column-tiled _kernel / _cheb_kernel width; 3520^2 down to
+    110^2: the fused smoother), on the operator of the scale job's own
+    conductance map: held against its plain version (check_kernel; the
+    error joins its row of the kernels line), timed (least of three runs
+    of 20 launches) beside its byte bound; at the two finest levels the
+    plain version timed too, and matvec beside the library sparse
+    product wherever it launches.  Returns {name: {(H, W): (ms, bound
+    ms)}}."""
+    shapes = hierarchy_shapes(*SCALE_HW)
+    per_kernel = dict(pair_solve_kernels(shapes))
+    times = {name: {} for name in per_kernel}
+    for H, W in shapes:
+        A, dinv = _crop_operator(gmap, H, W, dev)
+        blocks = _card_blocks(SCALE_B, H, W, dev, seed=H)
+        for name, levels in per_kernel.items():
+            if (H, W) not in levels:
+                continue
+            kern, plain = _pairs(name, A, dinv, blocks)
+            label = f"scale level B={SCALE_B} {H}x{W}"
+            rows[name]["max_abs_err"] = max(
+                rows[name]["max_abs_err"],
+                check_kernel(name, kern, plain, label))
+            ms = min(cuda_ms(kern, n=20) for _ in range(3))
+            bound = kernel_bytes(name, SCALE_B, H, W) / rate * 1e3
+            times[name][(H, W)] = (ms, bound)
+            extra = ""
+            if (H, W) in shapes[:2]:
+                extra += f", plain {cuda_ms(plain, n=3, warm=1):.4f} ms"
+            if name == "matvec":
+                call = _library_matvec(A, blocks[0])
+                extra += (f", library "
+                          f"{min(cuda_ms(call, n=20) for _ in range(3)):.4f}"
+                          " ms")
+                del call
+            note(f"{label} {name}: {ms:.4f} ms{extra}, byte bound "
+                 f"{bound:.4f} ms, {100 * bound / ms:.1f}% of bound")
+        del A, dinv, blocks
+        torch.cuda.empty_cache()
+    return times
+
+
+def check_past_2_31(gmap, dev, rows, names=None):
+    """Each kernel (of names, default all) launched once at B = 44 on
+    the scale job's 7040^2 fine level, 2.18e9 floats a block (past 2^31,
+    where an int offset across the batch would wrap): its first and last
+    columns held against the plain version run on those columns alone,
+    max |kernel - plain| <= TOL * max |plain|; the error joins the
+    kernel's entry of rows.  Two 8.7 GB input blocks u and v, which a
+    kernel with more inputs reads in several roles."""
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    H, W = SCALE_HW
+    B = SCALE_BIG_B
+    if not B * H * W > 2**31:
+        raise AssertionError(f"B*H*W = {B * H * W} does not pass 2^31")
+    A, dinv = _crop_operator(gmap, H, W, dev)
+    u, v = _card_blocks(B, H, W, dev, seed=31, n=2)
+    c, ca, cb = 0.8, 0.37, 1.21
+    calls = {
+        "matvec": (lambda u, v: cs.matvec(A, v),
+                   lambda u, v: cs.matvec_plain(A, v)),
+        "matvec_pap": (lambda u, v: cs.matvec_pap(A, v),
+                       lambda u, v: cs.matvec_pap_plain(A, v)),
+        "cheb_step": (
+            lambda u, v: cs.cheb_step(A, dinv, u, v, u, ca, cb),
+            lambda u, v: cs.cheb_step_plain(A, dinv, u, v, u, ca, cb)),
+        "residual_restrict": (
+            lambda u, v: cs.residual_restrict(A, u, v),
+            lambda u, v: cs.residual_restrict_plain(A, u, v)),
+        "cheb_init": (lambda u, v: cs.cheb_init(A, dinv, u, c, ca, cb),
+                      lambda u, v: cs.cheb_init_plain(A, dinv, u, c, ca,
+                                                      cb)),
+        "residual_init": (
+            lambda u, v: cs.residual_init(A, dinv, u, v, c),
+            lambda u, v: cs.residual_init_plain(A, dinv, u, v, c)),
+        "cheb_finish": (
+            lambda u, v: cs.cheb_finish(A, dinv, u, v, c, ca, cb),
+            lambda u, v: cs.cheb_finish_plain(A, dinv, u, v, c, ca, cb)),
+    }
+    for name, (kern, plain) in calls.items():
+        if names is not None and name not in names:
+            continue
+        got = _as_tuple(kern(u, v))
+        torch.cuda.synchronize()
+        worst = 0.0
+        for k in (0, B - 1):
+            ref = _as_tuple(plain(u[k:k + 1], v[k:k + 1]))
+            for g_, r_ in zip(got, ref):
+                err = float((g_[k:k + 1] - r_).abs().max())
+                scale = float(r_.abs().max())
+                if not err <= TOL * scale:
+                    raise AssertionError(
+                        f"{name} at B={B} {H}x{W}: column {k} differs from "
+                        f"the plain version by {err} > {TOL} * {scale}")
+                worst = max(worst, err)
+        del got, ref
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], worst)
+        note(f"{name} at B={B} {H}x{W} ({B * H * W} floats a block, past "
+             f"2^31): columns 0 and {B - 1} agree with the plain version "
+             f"to {worst:.3e}")
+    del u, v, A, dinv
+    torch.cuda.empty_cache()
 
 
 def note_per_job(level_times, launches_at, label=""):
@@ -942,6 +1146,96 @@ def phase_alltoone(cfg, gmap, level_times):
     note_per_job(level_times, launches_at, " all-to-one job")
 
 
+def phase_scale(cfg, level_times):
+    """The scale job (make_scale_job: 6930^2, 48M cells, bucketed to
+    7040^2) once through compute(..., "cuda") with the launch counters
+    zeroed just before it.  It must take the large-grid route (a
+    host-built hierarchy, stats mg_build), give finite, symmetric
+    resistances positive off the diagonal, and leave each anchor
+    column's final float64 relative residual, recomputed here from the
+    solve's output against the float64 device operator, under the
+    job's tolerance (consts.CG_RTOL); matvec_pap, matvec and cheb_step
+    launched at 7040^2 (the fine level is wider than 4094 cells) and the
+    fused smoother at 3520^2.  Prints the CG iterations per refinement
+    pass, the batch width, the host-timer sections, peak device memory
+    and the wall time, and per_job lines from time_scale_levels."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch import consts, stats
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    from circuitscape_tpu_torch.solve import stencil as st
+
+    solves = []
+    real = st.stencil_solve_pairs
+
+    def keep(S64, src, dst, **k):
+        X, rel, it = real(S64, src, dst, **k)
+        solves.append((S64, np.asarray(src), np.asarray(dst), X))
+        return X, rel, it
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    st.stencil_solve_pairs = keep
+    try:
+        t = time.perf_counter()
+        r = cst.compute(cfg, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    finally:
+        st.stencil_solve_pairs = real
+    launches, launches_at = dict(cs.LAUNCHES), dict(cs.LAUNCHES_AT)
+    peak = torch.cuda.max_memory_allocated()
+    sd = stats.finalize()
+    note(f"scale job: {dt:.3f} s wall, {sd.get('cg_iters')} CG iterations "
+         f"(per refinement pass {sd.get('pass_iters')}), batch width "
+         f"{sd.get('batch_width')}, {sd.get('cells')} cells, hierarchy "
+         f"built on the {sd.get('mg_build')}, mg_kernels "
+         f"{sd.get('mg_kernels')}, peak device memory {peak} B "
+         f"({peak / 2**30:.3f} GiB), solve_s {sd.get('solve_s'):.3f}, "
+         f"fine_spmv_pct_of_mem_roofline "
+         f"{sd.get('fine_spmv_pct_of_mem_roofline')}")
+    note(f"scale job sections {_sections()}")
+    if sd.get("mg_build") != "host":
+        raise AssertionError(f"scale job: hierarchy built on the "
+                             f"{sd.get('mg_build')}, not the host")
+    check_resistances(r, "scale job", n=4)
+    worst = 0.0
+    for S64, src, dst, X in solves:
+        H, W = S64.shape
+        nb = len(src)
+        dev = X.device
+        B64 = st._pairs_rhs(torch.as_tensor(src, device=dev),
+                            torch.as_tensor(dst, device=dev), H, W, nb)
+        R = B64 - st.stencil_matvec(S64, X[:nb])
+        rel = (torch.sqrt((R * R).sum(dim=(1, 2))) /
+               torch.sqrt((B64 * B64).sum(dim=(1, 2)))).cpu().numpy()
+        del B64, R
+        note(f"scale job: float64 relative residuals {rel.tolist()} of "
+             f"{nb} columns on the {H}x{W} operator")
+        if not np.all(rel <= consts.CG_RTOL):
+            raise AssertionError(f"scale job: relative residuals {rel} "
+                                 f"above {consts.CG_RTOL}")
+        worst = max(worst, float(rel.max()))
+    if not solves:
+        raise AssertionError("scale job: no pair solve ran")
+    del solves
+    check_launched(launches, "scale job")
+    fine, half = SCALE_HW, (SCALE_HW[0] // 2, SCALE_HW[1] // 2)
+    need = [("matvec_pap",) + fine, ("matvec",) + fine,
+            ("cheb_step",) + fine, ("cheb_init",) + half,
+            ("residual_init",) + half, ("cheb_finish",) + half]
+    missing = [k for k in need if launches_at.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"scale job: no launches at {missing}")
+    note("scale job launches per shape " + ", ".join(
+        f"{k} {H}x{W}: {n}" for (k, H, W), n in sorted(launches_at.items())))
+    note_per_job(level_times, launches_at, " scale job")
+    torch.cuda.empty_cache()
+    return {"s": dt, "iters": sd.get("cg_iters"), "peak": peak,
+            "residual": worst}
+
+
 def phase_poly_project(gmap, poly, dev, rate):
     """poly_project (torch glue, not a TPU kernel) with the polygon job's
     shared projector on a 1024 x 1024, B = 32 float32 block: two calls
@@ -1111,20 +1405,29 @@ def phase_maps(cfg, gmap, r_shortcut):
          f"{rel:.3e} relative; cumulative map max {cum.max():.6g}")
 
 
-class forced_iterative_tier:
+class env_set:
+    """Environment variables set while active, restored after."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.kw}
+        os.environ.update(self.kw)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def forced_iterative_tier():
     """CS_NETWORK_DIRECT_MAX=0 while active: network cg+amg jobs run the
     iterative tier (ELL PCG with the SA-AMG V-cycle on the job's device)
     instead of routing to the native Cholesky."""
-
-    def __enter__(self):
-        self.old = os.environ.get("CS_NETWORK_DIRECT_MAX")
-        os.environ["CS_NETWORK_DIRECT_MAX"] = "0"
-
-    def __exit__(self, *exc):
-        if self.old is None:
-            del os.environ["CS_NETWORK_DIRECT_MAX"]
-        else:
-            os.environ["CS_NETWORK_DIRECT_MAX"] = self.old
+    return env_set(CS_NETWORK_DIRECT_MAX="0")
 
 
 def _sections():
@@ -1445,6 +1748,22 @@ def phase_agree(d):
         cfg, scenario="all-to-one", write_cur_maps="True"), 8 + 1,
         kirchhoff=gmap)
 
+    # the large-grid route (a host-built hierarchy under the device
+    # operator) with CS_DEVICE_MG_MAX set low, and a grid whose fine
+    # level is wider than 4094 cells (matvec and cheb_step there, the
+    # fused smoother on the coarser levels)
+    pd = os.path.join(d, "host_route")
+    os.makedirs(pd)
+    cfg, _ = make_job(pd, 256, 256)
+    with env_set(CS_DEVICE_MG_MAX="1"):
+        agree_jobs(pd, "256x256 job on the host-built route", cfg, 32,
+                   build="host")
+    pd = os.path.join(d, "wide")
+    os.makedirs(pd)
+    cfg, _ = make_job(pd, 128, 4200, npoints=8, seed=3)
+    agree_jobs(pd, "128x4200 job (fine level 128x4224)", cfg, 8,
+               build="device")
+
     # the general sparse-graph tier: a lattice network on the forced
     # iterative tier, a raster maps job below CS_PAIRWISE_DEVICE_MIN and
     # a one-to-all job with included pairs (the per-point loop)
@@ -1617,11 +1936,12 @@ def agree_scenario(d, label, cfg, nmaps=0, kirchhoff=None):
          f"|map|{kirch}")
 
 
-def agree_jobs(d, label, cfg, n, nmaps=0):
+def agree_jobs(d, label, cfg, n, nmaps=0, build=None):
     """One job on "cuda" and on "cpu" (outputs in d/cuda, d/cpu):
     resistances to 1e-5 relative (0 where the cpu has 0), the same CG
     iteration count, the same nmaps maps written, each within 1e-5 of
-    max |cpu map|."""
+    max |cpu map|; with build, the hierarchy built there ("device" or
+    "host", stats mg_build) on both."""
     import circuitscape_tpu_torch as cst
     from circuitscape_tpu_torch import stats
     r, iters, files = {}, {}, {}
@@ -1630,7 +1950,11 @@ def agree_jobs(d, label, cfg, n, nmaps=0):
         os.makedirs(od)
         r[dev] = cst.compute(dict(cfg, output_file=os.path.join(
             od, "job.out")), device=dev)
-        iters[dev] = stats.finalize().get("cg_iters")
+        sd = stats.finalize()
+        iters[dev] = sd.get("cg_iters")
+        if build is not None and sd.get("mg_build") != build:
+            raise AssertionError(f"{label} on {dev}: hierarchy built on the "
+                                 f"{sd.get('mg_build')}, not the {build}")
         files[dev] = sorted(f for f in os.listdir(od) if f.endswith(".asc"))
     check_resistances(r["cuda"], f"{label} cuda", n=n, merged=True)
     off = ~np.eye(n, dtype=bool)
@@ -1686,6 +2010,10 @@ def main():
             tempfile.mkdtemp(dir=d), 1000, 1000)
         phase_pen_kernels(gmap, adv_cond, dev)
         phase_poly_project(gmap, poly, dev, rate)
+        scale_cfg, scale_gmap = make_scale_job(tempfile.mkdtemp(dir=d))
+        scale_times = time_scale_levels(scale_gmap, dev, rate, rows)
+        check_past_2_31(scale_gmap, dev, rows)
+        del scale_gmap
         r, launches_at = phase_main(cfg, rows)
         note_per_job(level_times, launches_at)
         phase_maps(cfg, gmap, r)
@@ -1695,6 +2023,7 @@ def main():
         phase_advanced(adv_cfg, gmap, adv_src, adv_cond)
         phase_onetoall(cfg, r, level_times)
         phase_alltoone(cfg, gmap, level_times)
+        phase_scale(scale_cfg, scale_times)
         phase_network(tempfile.mkdtemp(dir=d), rate, dev_name)
         phase_network_advanced(tempfile.mkdtemp(dir=d))
         phase_agree(tempfile.mkdtemp(dir=d))

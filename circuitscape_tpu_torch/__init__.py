@@ -6,11 +6,12 @@ work is PyTorch; the stencil kernels of the preconditioned CG solve are
 hand-written CUDA C++ (csrc/, built with nvcc on first use).  It imports
 neither JAX nor the circuitscape_tpu package.
 
-This package carries the raster scenarios with solver = cg+amg on the
-stencil device path: pairwise (shortcut mode, current and voltage maps,
-exclude pairs, short-circuit polygons and focal regions), advanced, and
-one-to-all / all-to-one; network jobs and the general sparse-graph tier
-raise NotImplementedError naming their ROADMAP item.
+This package carries the raster scenarios on the stencil device path
+(pairwise in shortcut mode and with current and voltage maps, exclude
+pairs, short-circuit polygons and focal regions, advanced, one-to-all /
+all-to-one; grids above CS_DEVICE_MG_MAX cells with a host-built
+multigrid hierarchy) and every other job on the general sparse-graph
+tier (network scenarios, small grids, the direct solvers).
 
 Public API mirrors the reference:
     compute(path_or_dict, device=None) -> run a job from an INI file or

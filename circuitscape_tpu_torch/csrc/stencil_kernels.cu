@@ -700,8 +700,15 @@ inline dim3 tiles(int rows, int cols) {
 
 inline int launch_error(int B, int H, int W) {
     // the wrappers never send an empty launch; refuse one rather than
-    // launching a zero-sized grid
-    if (B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+    // launching a zero-sized grid.  Offsets within one (H, W) plane are
+    // int (a cell's neighbour offsets, the staged windows' sources);
+    // every offset across the batch is size_t (column * plane), so
+    // B * H * W may pass 2^31 but H * W may not.  Tile rows go in
+    // gridDim.y or z (at most 65535 tiles of at least 8 rows).
+    if (B < 1 || H < 1 || W < 1 || (long long)H * W > 0x7fffffffLL ||
+        H > 8 * 65535) {
+        return (int)cudaErrorInvalidValue;
+    }
     return -1;
 }
 

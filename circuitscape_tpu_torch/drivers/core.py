@@ -162,10 +162,6 @@ def single_ground_all_pairs(prob: GraphProblem, flags, cfg, device,
     num_pairs = get_num_pairs(prob.cc, points, exclude, orig_pts)
     if log:
         cslog.info("Total number of pair solves = %s", num_pairs)
-    if of.any_maps and cfg.write_as_tif:
-        raise NotImplementedError(
-            "GeoTIFF output is not carried by circuitscape_tpu_torch yet "
-            "(ROADMAP queue 1 item 10); set write_as_tif = False")
 
     resistances = -np.ones((numpoints, numpoints), dtype)
     voltmatrix = np.zeros((numpoints, numpoints), dtype)
@@ -438,6 +434,7 @@ def _stencil_shortcut_solve(prob, flags, resistances, voltmatrix,
             # concurrent solves (batch width) per device chunk
             step = min(step, max_par)
         step = pow2_floor(step)
+        stats.record(batch_width=min(step, nb))
         for s0 in range(0, nb, step):
             chunk = pair_cols[s0:s0 + step]
             bsz = len(chunk)

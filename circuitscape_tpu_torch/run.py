@@ -2,9 +2,10 @@
 
 Counterpart of circuitscape_tpu/run.py.  Parity reference: src/run.jl:1-67
 (compute, _run, _compute).  Runs on the GPU ("cuda") unless the caller
-passes device="cpu"; what this package does not carry yet (GeoTIFF,
-grids above 1.2M cells on the stencil path) raises NotImplementedError
-naming its ROADMAP item.
+passes device="cpu".  Rasters arrive as AAGrid, GeoTIFF, ESRI EHdr,
+ENVI or NPY files; grids of any size that fits the card run on the
+stencil path.  What this package does not carry yet (the multi-device
+mesh) is named in ROADMAP.md.
 """
 
 from __future__ import annotations

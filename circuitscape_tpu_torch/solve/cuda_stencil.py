@@ -170,9 +170,14 @@ def _ptr(t: torch.Tensor):
 def _check(A: StencilOperator, *blocks: torch.Tensor, extra_planes=()):
     """The kernels take contiguous float32 CUDA tensors on one device:
     planes (H, W) (the operator's five and extra_planes), blocks
-    (B, H, W) with B >= 1."""
+    (B, H, W) with B >= 1 and H * W < 2^31."""
     dev = A.diag.device
     H, W = A.shape
+    if H * W >= 2**31:
+        # the C entry points take int sides and index within a plane in
+        # int (across the batch in size_t: B * H * W may pass 2^31)
+        raise ValueError(f"stencil kernels take grids of under 2^31 "
+                         f"cells, got {H}x{W}")
     for p in A.planes + tuple(extra_planes):
         if (p.device != dev or p.dtype != torch.float32 or
                 not p.is_contiguous() or tuple(p.shape) != (H, W)):

@@ -1,16 +1,18 @@
 """Geometric multigrid preconditioner for the stencil operator, in torch.
 
-Counterpart of circuitscape_tpu/solve/geomg.py (the device-build path
-and the V-cycle).  Every level stays a 9-point stencil, so the V-cycle
-is shifted-plane arithmetic plus 2x2 patch reductions.
+Counterpart of circuitscape_tpu/solve/geomg.py (the device build, the
+host build and the V-cycle).  Every level stays a 9-point stencil, so
+the V-cycle is shifted-plane arithmetic plus 2x2 patch reductions.
 
 Coarsening is Galerkin with a piecewise-constant 2x2-patch prolongator.
 For a graph Laplacian that collapses exactly to the Laplacian of the
 patch-collapsed graph: each fine directed edge either stays inside a
 patch (vanishes) or adds its weight to one coarse directed edge chosen
 by the parity of its endpoint coordinates.  The hierarchy builds on the
-device in float32; the coarsest level's dense pseudo-inverse builds on
-the host in float64.
+device in float32 (build_geo_mg_device) or, for grids above
+CS_DEVICE_MG_MAX cells as in the JAX package, on the host in float64
+with each level cast to float32 (build_geo_mg); either way the coarsest
+level's dense pseudo-inverse builds on the host in float64.
 
 Smoother: degree-2 Chebyshev on D^-1 A, symmetric V(1,1), so the cycle
 is a valid SPD preconditioner for CG.  Its fine work runs in the
@@ -252,6 +254,156 @@ def build_geo_mg_device(S32: StencilOperator, coarse_cells=256,
     pinv = torch.as_tensor(_sym_pinv(dense), dtype=S32.diag.dtype,
                            device=S32.diag.device)
     return GeoMgHierarchy(levels, pinv, (hc, wc), 1.9)
+
+
+# --- host build: the JAX package's build_geo_mg, for grids above
+# CS_DEVICE_MG_MAX cells (solve/prepare.py) -------------------------------
+
+def _pad_even(p: np.ndarray) -> np.ndarray:
+    H, W = p.shape
+    return np.pad(p, ((0, H % 2), (0, W % 2)))
+
+
+def _coarsen_planes(we, ws, wse, wne):
+    """One 2x2 Galerkin coarsening step on the four directed host planes,
+    in float64 (geomg._coarsen_planes of the JAX package, the same
+    edge-parity routing as _coarsen_planes_torch)."""
+    we, ws, wse, wne = map(_pad_even, (we, ws, wse, wne))
+    H, W = we.shape
+    hc, wc = H // 2, W // 2
+
+    def patch(i_par, j_par, p):
+        return p[i_par::2, j_par::2][:hc, :wc]
+
+    cE = np.zeros((hc, wc))
+    cS = np.zeros((hc, wc))
+    cSE = np.zeros((hc, wc))
+    cNE = np.zeros((hc, wc))
+    cE += patch(0, 1, we) + patch(1, 1, we)
+    cS += patch(1, 0, ws) + patch(1, 1, ws)
+    cSE += patch(1, 1, wse)
+    cS += patch(1, 0, wse)
+    cE += patch(0, 1, wse)
+    cNE += patch(0, 1, wne)
+    # N edges from even-even NE entries land on the UPPER patch's S plane
+    n_up = patch(0, 0, wne)
+    cS[:-1, :] += n_up[1:, :]
+    cE += patch(1, 1, wne)
+
+    cE[:, -1] = 0
+    cS[-1, :] = 0
+    cSE[-1, :] = 0
+    cSE[:, -1] = 0
+    cNE[0, :] = 0
+    cNE[:, -1] = 0
+    return cE, cS, cSE, cNE
+
+
+def _np_diag(we, ws, wse, wne):
+    """Host Laplacian diagonal from the four directed planes."""
+    diag = np.zeros(we.shape)
+    diag[:, :-1] += we[:, :-1]
+    diag[:, 1:] += we[:, :-1]
+    diag[:-1, :] += ws[:-1, :]
+    diag[1:, :] += ws[:-1, :]
+    diag[:-1, :-1] += wse[:-1, :-1]
+    diag[1:, 1:] += wse[:-1, :-1]
+    diag[1:, :-1] += wne[1:, :-1]
+    diag[:-1, 1:] += wne[1:, :-1]
+    return diag
+
+
+def _estimate_lam_max(we, ws, wse, wne, iters=12, pen=None) -> float:
+    """Host estimate of rho(D^-1 A) for the Chebyshev interval: 12 float64
+    power iterations from np.random.default_rng(0) on levels of at most
+    65536 cells, the Gershgorin-safe 2.0 above (rho(D^-1 L) <= 2 for a
+    graph Laplacian), as the JAX package's host build."""
+    if we.size > 65536:
+        return 2.0
+    from .stencil import stencil_matvec_np
+    diag = _np_diag(we, ws, wse, wne)
+    if pen is not None:
+        diag = diag + pen
+    dinv = np.where(diag > 0, 1.0 / np.where(diag == 0, 1.0, diag), 0.0)
+    op = StencilOperator(we, ws, wse, wne, diag)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1,) + we.shape)
+    x /= np.linalg.norm(x) + 1e-30
+    lam = 2.0
+    for _ in range(iters):
+        y = dinv[None] * stencil_matvec_np(op, x)
+        nrm = np.linalg.norm(y)
+        if nrm == 0:
+            return 2.0
+        lam = nrm
+        x = y / nrm
+    return float(min(lam * 1.05, 2.0))
+
+
+def _coarsen_pen_np(p: np.ndarray) -> np.ndarray:
+    """Host 2x2 patch sum of a diagonal penalty field (P^T diag(p) P)."""
+    p = _pad_even(p)
+    H, W = p.shape
+    return p.reshape(H // 2, 2, W // 2, 2).sum(axis=(1, 3))
+
+
+def _upload32(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+def build_geo_mg(planes_np, device="cpu", fine_device_ops=None,
+                 pen_np=None) -> GeoMgHierarchy:
+    """Hierarchy setup on the host (the JAX package's build_geo_mg): the
+    levels coarsen in float64 numpy from the host planes planes_np
+    (we, ws, wse, wne[, diag]), and each level's five planes and
+    inv_diag are cast to float32 and uploaded to device.  The coarsest
+    level's dense pseudo-inverse builds in float64, stored in float32.
+
+    fine_device_ops: the float32 fine operator's five planes, already on
+    device (the cast of the device-built float64 operator); level 0 is
+    then that operator, its inv_diag computed on the device, and only
+    the coarser levels are uploaded.  With pen_np, its diag must already
+    include the penalty.
+
+    pen_np: optional (H, W) float64 ground field, added to every level's
+    diagonal and coarsened by 2x2 patch sums (as _build_levels_device
+    does on the device).  Levels, coarsest size and smoother choice as
+    build_geo_mg_device's defaults."""
+    we, ws, wse, wne = (np.asarray(p, np.float64) for p in planes_np[:4])
+    pen = None if pen_np is None else np.asarray(pen_np, np.float64)
+    levels = []
+    while (we.shape[0] * we.shape[1] > 256 and len(levels) < 12 and
+           min(we.shape) >= 2):
+        if not levels and fine_device_ops is not None:
+            A = StencilOperator(*(p.contiguous() for p in fine_device_ops))
+            inv = torch.where(A.diag > 0,
+                              1.0 / torch.where(A.diag == 0, 1.0, A.diag),
+                              0.0)
+        else:
+            diag = _np_diag(we, ws, wse, wne)
+            if pen is not None:
+                diag = diag + pen
+            inv = np.where(diag > 0,
+                           1.0 / np.where(diag == 0, 1.0, diag), 0.0)
+            A = StencilOperator(*(_upload32(p, device)
+                                  for p in (we, ws, wse, wne, diag)))
+            inv = _upload32(inv, device)
+        lam = _estimate_lam_max(we, ws, wse, wne, pen=pen)
+        levels.append(GeoMgLevel(A, inv.contiguous(), lam,
+                                 fused_smoother_supported(A.shape)))
+        we, ws, wse, wne = _coarsen_planes(we, ws, wse, wne)
+        if pen is not None:
+            pen = _coarsen_pen_np(pen)
+
+    dense = _dense_laplacian(we, ws, wse, wne)
+    if pen is not None:
+        dense[np.diag_indices_from(dense)] += _pad_even(pen)[
+            :we.shape[0], :we.shape[1]].ravel()
+    # benign identity on empty (all-inactive) coarse cells
+    empty = dense.diagonal() == 0
+    dense[empty, empty] = 1.0
+    pinv = _upload32(_sym_pinv(dense), device)
+    return GeoMgHierarchy(tuple(levels), pinv, tuple(we.shape), 1.9)
 
 
 def from_jax_numpy(levels, coarse_pinv, coarse_shape, overcorrect=1.9,

@@ -34,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import stats
+
 
 @dataclass
 class StencilOperator:
@@ -267,6 +269,80 @@ def stencil_activity_stats(gmap: np.ndarray, four_neighbors: bool) -> int:
         nbr[1:, :-1] |= act[:-1, 1:]
         nbr[:-1, 1:] |= act[1:, :-1]
     return 2 * edges + int(np.count_nonzero(act & nbr))
+
+
+def _pad_plane(a: np.ndarray, H: int, W: int) -> np.ndarray:
+    out = np.zeros((H, W), a.dtype)
+    out[:a.shape[0], :a.shape[1]] = a
+    return out
+
+
+def stencil_planes_np(gmap: np.ndarray, avg_res: bool, four_neighbors: bool):
+    """Host plane construction: 5 numpy float64 arrays (we, ws, wse, wne,
+    diag) with the edge-weight rules of graph/build.py, the input of the
+    host-built hierarchy (geomg.build_geo_mg).  A copy of the JAX
+    package's stencil_planes_np, so its float64 arithmetic (and every
+    coarse level built from it) is the same to the bit."""
+    from ..graph.build import cond_avg, res_avg, weird_avg, weirder_avg
+
+    g = np.asarray(gmap, np.float64)
+    H, W = g.shape
+    act = g > 0
+    f1 = res_avg if avg_res else cond_avg
+    f2 = weirder_avg if avg_res else weird_avg
+
+    def plane(src_sl, dst_sl, fn):
+        m = act[src_sl] & act[dst_sl]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            w = np.where(m, fn(g[src_sl], g[dst_sl]), 0.0)
+        w[~m] = 0.0
+        return w
+
+    we = _pad_plane(plane(np.s_[:, :-1], np.s_[:, 1:], f1), H, W)
+    ws = _pad_plane(plane(np.s_[:-1, :], np.s_[1:, :], f1), H, W)
+    if four_neighbors:
+        wse = np.zeros((H, W))
+        wne = np.zeros((H, W))
+    else:
+        wse = _pad_plane(plane(np.s_[:-1, :-1], np.s_[1:, 1:], f2), H, W)
+        # NE plane indexed at the source cell (i, j), i >= 1
+        wne_core = plane(np.s_[1:, :-1], np.s_[:-1, 1:], f2)
+        wne = np.zeros((H, W))
+        wne[1:, :W - 1] = wne_core
+
+    diag = np.zeros((H, W))
+    diag[:, :-1] += we[:, :-1]
+    diag[:, 1:] += we[:, :-1]
+    diag[:-1, :] += ws[:-1, :]
+    diag[1:, :] += ws[:-1, :]
+    diag[:-1, :-1] += wse[:-1, :-1]
+    diag[1:, 1:] += wse[:-1, :-1]
+    diag[1:, :-1] += wne[1:, :-1]
+    diag[:-1, 1:] += wne[1:, :-1]
+
+    return we, ws, wse, wne, diag
+
+
+def stencil_matvec_np(A: StencilOperator, x: np.ndarray) -> np.ndarray:
+    """Host (numpy, float64) stencil matvec on (B, H, W) blocks, for an
+    operator of numpy planes: the power iteration of the host-built
+    hierarchy's lam estimate (geomg._estimate_lam_max), in the JAX
+    package's order of operations."""
+    we = np.asarray(A.we, np.float64)
+    ws = np.asarray(A.ws, np.float64)
+    wse = np.asarray(A.wse, np.float64)
+    wne = np.asarray(A.wne, np.float64)
+    diag = np.asarray(A.diag, np.float64)
+    y = diag[None] * x
+    y[:, :, :-1] -= we[None, :, :-1] * x[:, :, 1:]
+    y[:, :, 1:] -= we[None, :, :-1] * x[:, :, :-1]
+    y[:, :-1, :] -= ws[None, :-1, :] * x[:, 1:, :]
+    y[:, 1:, :] -= ws[None, :-1, :] * x[:, :-1, :]
+    y[:, :-1, :-1] -= wse[None, :-1, :-1] * x[:, 1:, 1:]
+    y[:, 1:, 1:] -= wse[None, :-1, :-1] * x[:, :-1, :-1]
+    y[:, 1:, :-1] -= wne[None, 1:, :-1] * x[:, :-1, 1:]
+    y[:, :-1, 1:] -= wne[None, 1:, :-1] * x[:, 1:, :-1]
+    return y
 
 
 def stencil_from_gmap_device(gmap: torch.Tensor, avg_res: bool,
@@ -691,6 +767,7 @@ def _solve_pairs_fused(S64, A_lo, prec, prec_apply, sc, dc, point_cells,
         rel = torch.sqrt(_colsum(R * R)) / safe_bnorm
         iters += st.k
         npass += 1
+        stats.record_pass(st.k)
     Vp, _ = _extract_point_voltages(X, sc, point_cells)
     return X, rel, iters, Vp
 

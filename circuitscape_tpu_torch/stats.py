@@ -59,6 +59,13 @@ def record(**kw):
                 JOB[k] = v
 
 
+def record_pass(iters: int):
+    """Append one refinement pass's inner CG iterations (the pair
+    solve's per-pass counts, pass_iters)."""
+    with _lock:
+        JOB.setdefault("pass_iters", []).append(int(iters))
+
+
 def record_solve(x_shape, iters: int, seconds: float):
     """Accumulate one batched device solve: x_shape = (B, H, W) of the
     device RHS block (padded batch), iters = device CG iterations."""
@@ -86,6 +93,10 @@ def finalize() -> dict:
       fine_nnz        stored nonzeros of the fine operator (set once)
       cells           padded grid cells (set once)
       mg_kernels      per-MG-level kernel route list (set once)
+      mg_build        "device" or "host": where the hierarchy coarsened
+      batch_width     columns per chunk of the shortcut pair solve
+      pass_iters      inner CG iterations of each refinement pass of
+                      the pair solves, in order
       device_name     torch.cuda.get_device_name() or "cpu" (set once)
     """
     with _lock:

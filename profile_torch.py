@@ -2,8 +2,8 @@
 
     python3 profile_torch.py [--size 1000] [--points 32] [--maps]
                              [--polygons | --regions N | --advanced |
-                              --one-to-all | --all-to-one | --network]
-                             [--trace PATH]
+                              --one-to-all | --all-to-one | --network |
+                              --scale] [--trace PATH]
 
 Runs the bench.py job (seed 42, size x size conductance raster with ~10%
 NODATA, `points` focal points, cg+amg, single precision, shortcut mode;
@@ -15,7 +15,10 @@ pair; with --polygons, chip_smoke.py's 20 short-circuit polygons; with
 --all-to-one, that scenario on the points, maps off unless --maps;
 with --network, chip_smoke.py's network pairwise job, the 100,000-node
 lattice with 20 focal nodes, on the iterative tier of the general
-sparse-graph path: CS_NETWORK_DIRECT_MAX=0)
+sparse-graph path: CS_NETWORK_DIRECT_MAX=0; with --scale, chip_smoke.py's
+scale job, bench_scale.py's 6930 x 6930 raster with 4 points, which
+takes the host-built hierarchy unless CS_DEVICE_MG_MAX is set above its
+49.6M padded cells)
 through circuitscape_tpu_torch.compute(..., "cuda"): one warm run, then
 one run under torch.profiler.  Prints, as JSON lines:
   - the job's wall time, host-timer sections and solver stats;
@@ -74,6 +77,8 @@ def main():
     ap.add_argument("--network", action="store_true",
                     help="chip_smoke.py's network pairwise job instead, "
                     "on the iterative tier")
+    ap.add_argument("--scale", action="store_true",
+                    help="chip_smoke.py's 48M-cell scale job instead")
     ap.add_argument("--trace", default="",
                     help="write the Chrome trace to this path")
     args = ap.parse_args()
@@ -84,7 +89,7 @@ def main():
     import circuitscape_tpu_torch as cst
     from chip_smoke import (card_line, make_advanced_job, make_job,
                             make_network_job, make_polygon_job,
-                            make_regions_job)
+                            make_regions_job, make_scale_job, SCALE_SIDE)
     from circuitscape_tpu_torch import stats
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
     from circuitscape_tpu_torch.timer import CSTIMER
@@ -104,6 +109,8 @@ def main():
         elif args.network:
             cfg = make_network_job(d)
             os.environ["CS_NETWORK_DIRECT_MAX"] = "0"
+        elif args.scale:
+            cfg, _ = make_scale_job(d)
         else:
             cfg, _ = make_job(d, args.size, args.size, args.points)
             cfg["scenario"] = args.scenario
@@ -112,6 +119,7 @@ def main():
                        write_max_cur_maps="True")
         cst.compute(cfg, device="cuda")           # warm
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -140,14 +148,18 @@ def main():
             s = port.setdefault(m.group(1), [0.0, 0])
             s[0] += us / 1e3
             s[1] += n
-    print(json.dumps({"size": args.size, "points": args.points,
+    print(json.dumps({"size": SCALE_SIDE if args.scale else args.size,
+                      "points": 4 if args.scale else args.points,
                       "maps": args.maps, "polygons": args.polygons,
                       "regions": args.regions,
                       "scenario": "advanced" if args.advanced else
-                      "network" if args.network else args.scenario,
+                      "network" if args.network else
+                      "scale" if args.scale else args.scenario,
                       "wall_s": wall, "timers_s": timers,
                       "cg_iters": st.get("cg_iters"),
-                      "solve_s": st.get("solve_s")}))
+                      "solve_s": st.get("solve_s"),
+                      "mg_build": st.get("mg_build"),
+                      "peak_device_bytes": torch.cuda.max_memory_allocated()}))
     print(json.dumps({"device_busy_s": busy,
                       "device_idle_share": 1.0 - busy / wall,
                       "n_kernels": len(kernels),

@@ -503,13 +503,6 @@ def test_advanced_job_matches_jax(tmp_path, monkeypatch, polygons):
         assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), f
 
 
-# mgVerify3's INI names GeoTIFF inputs; its AAGrid twins in the same
-# folder hold the same grids (read here by both packages)
-_MG3 = {f"{k}_file": f"input/raster/advanced/3/{v}" for k, v in (
-    ("habitat", "cellmap10x10.asc"), ("source", "sources10x10.asc"),
-    ("ground", "grounds10x10.asc"), ("polygon", "regions_grid.asc"))}
-
-
 @pytest.mark.parametrize("n", range(1, 7))
 def test_golden_advanced(tmp_path, monkeypatch, n):
     """The advanced goldens at the default threshold (the per-component
@@ -526,8 +519,7 @@ def test_golden_advanced(tmp_path, monkeypatch, n):
         cfg = cst.parse_config(
             f"input/raster/advanced/{n}/mgVerify{n}.ini").to_dict()
         cfg.update(solver="cg+amg", suppress_messages="True",
-                   output_file=str(od / f"mgVerify{n}.out"),
-                   **(_MG3 if n == 3 else {}))
+                   output_file=str(od / f"mgVerify{n}.out"))
         v = cst.compute(cfg, device="cpu")
         assert np.all(np.isfinite(v))
         grids = sorted(f for f in os.listdir(od) if f.endswith(".asc"))

@@ -353,3 +353,41 @@ def test_cg_context_cuda_matches_cpu(dev, B):
     assert np.all(np.isfinite(g))
     assert np.abs(g - c).max() <= TOL * np.abs(c).max()
     assert abs(iters[str(dev)] - iters["cpu"]) <= 1
+
+
+def test_host_built_route_cuda_matches_cpu(dev, tmp_path, monkeypatch):
+    """The large-grid route (CS_DEVICE_MG_MAX=1: a hierarchy coarsened on
+    the host under the device-built operator) for a 256^2 bench-recipe
+    job with 8 points, on the card and on the CPU: resistances within
+    1e-5 relative and the same CG iteration count."""
+    import circuitscape_tpu_torch as cst
+    from chip_smoke import make_job
+    from circuitscape_tpu_torch import stats
+    monkeypatch.setenv("CS_DEVICE_MG_MAX", "1")
+    cfg, _ = make_job(str(tmp_path), 256, 256, npoints=8)
+    out, iters = {}, {}
+    for d in ("cuda", "cpu"):
+        out[d] = cst.compute(dict(cfg, output_file=str(tmp_path / f"{d}.out")),
+                             device=dev if d == "cuda" else "cpu")
+        st = stats.finalize()
+        assert st["mg_build"] == "host"
+        iters[d] = st["cg_iters"]
+    off = ~np.eye(8, dtype=bool)
+    a, b = out["cuda"][1:, 1:][off], out["cpu"][1:, 1:][off]
+    assert np.all(np.isfinite(a)) and np.all(a > 0)
+    assert np.all(np.abs(a - b) <= TOL * np.abs(b))
+    assert iters["cuda"] == iters["cpu"]
+
+
+@pytest.mark.parametrize("name", ["matvec", "matvec_pap", "cheb_step",
+                                  "residual_restrict", "cheb_init",
+                                  "residual_init", "cheb_finish"])
+def test_kernel_past_2_31_matches_plain(dev, name):
+    """Each kernel once at B = 44 on a 7040^2 grid (2.18e9 floats a
+    block, past 2^31): its first and last columns against the plain
+    version run on those columns (chip_smoke.check_past_2_31)."""
+    from chip_smoke import check_past_2_31
+    rng = np.random.default_rng(3)
+    g = rng.uniform(0.5, 3.0, (7040, 7040))
+    g[rng.random(g.shape) < 0.1] = 0.0
+    check_past_2_31(g, dev, {name: {"max_abs_err": 0.0}}, names=(name,))

@@ -6,10 +6,10 @@ sqrt(1e-6), every written grid within a sum-of-squares difference of
 
 Outputs go to tmp_path (output_file rewritten), never to tests/data/
 output, which tests/test_golden.py and tests/test_golden_mesh.py wipe.
-Two INIs name GeoTIFF inputs (ROADMAP queue 1 item 10): sgVerify1 runs
-with polygons.asc, the AAGrid twin of its polygon file, and mgVerify3
-with the AAGrid twins in its folder.  One-to-all, all-to-one and
-network goldens: tests/test_torch_golden_o2a.py, test_torch_network.py.
+Two INIs name GeoTIFF inputs (sgVerify1's polygon file, mgVerify3's
+habitat, source, ground and polygon files): both run on them.
+One-to-all, all-to-one and network goldens:
+tests/test_torch_golden_o2a.py, test_torch_network.py.
 """
 
 import glob
@@ -29,15 +29,6 @@ VERIFY = os.path.join(DATA_DIR, "output_verify")
 SOLVERS = ["cg+amg", "cholmod"]
 TOL = 1e-6
 
-# GeoTIFF inputs replaced by their AAGrid twins (the same grids)
-_TWINS = {
-    "sgVerify1": {"polygon_file": "input/raster/pairwise/1/polygons.asc"},
-    "mgVerify3": {f"{k}_file": f"input/raster/advanced/3/{v}" for k, v in (
-        ("habitat", "cellmap10x10.asc"), ("source", "sources10x10.asc"),
-        ("ground", "grounds10x10.asc"), ("polygon", "regions_grid.asc"))},
-}
-
-
 def run_golden(tmp_path, monkeypatch, ini, solver):
     """Run a corpus INI (cwd tests/data) through the port on the CPU with
     the solver overridden and outputs in tmp_path; returns (stem,
@@ -46,8 +37,7 @@ def run_golden(tmp_path, monkeypatch, ini, solver):
     stem = os.path.basename(ini)[:-4]
     cfg = cst.parse_config(ini).to_dict()
     cfg.update(solver=solver, suppress_messages="True",
-               output_file=str(tmp_path / f"{stem}.out"),
-               **_TWINS.get(stem, {}))
+               output_file=str(tmp_path / f"{stem}.out"))
     return stem, cst.compute(cfg, device="cpu")
 
 

@@ -114,8 +114,13 @@ def test_write_aagrid_matches_jax(tmp_path):
         read_aagrid(tmp_path / "j.asc").astype(np.float32))
     np.testing.assert_array_equal(
         read_aagrid(tmp_path / "t.asc").astype(np.float32), a)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        traster.write_raster(str(tmp_path / "t"), a, "", transform, "tif")
+    # write_as_tif: both packages write the same GeoTIFF bytes
+    traster.write_raster(str(tmp_path / "t"), a, "", transform, "tif")
+    jraster.write_raster(str(tmp_path / "j"), a, "", transform, "tif")
+    assert (tmp_path / "t.tif").read_bytes() == \
+        (tmp_path / "j.tif").read_bytes()
+    np.testing.assert_array_equal(
+        traster.read_raster(str(tmp_path / "t.tif"))[0], a)
 
 
 def _run_both(tmp_path, cfg):
@@ -136,15 +141,19 @@ def _assert_jobs_agree(tmp_path, rt, rj, map_tol=1e-5):
             _grids_agree(read_aagrid(tmp_path / f"t{suffix}"),
                          read_aagrid(tmp_path / f"j{suffix}"), suffix,
                          map_tol)
+        elif suffix.endswith(".tif"):
+            _grids_agree(jraster.read_raster(str(tmp_path / f"t{suffix}"))[0],
+                         jraster.read_raster(str(tmp_path / f"j{suffix}"))[0],
+                         suffix, map_tol)
     return files
 
 
 @pytest.mark.parametrize("case", ["pair_maps_null", "cum_only_log",
-                                  "exclude_no_maps"])
+                                  "exclude_no_maps", "pair_maps_tif"])
 def test_maps_job_matches_jax(tmp_path, monkeypatch, case):
     """A 150x130, 6-point bench-recipe job through both packages on the
     stencil device path: resistances to 1e-5 relative, the same files,
-    every map to 1e-5 of its max."""
+    every map (ASC, or GeoTIFF with write_as_tif) to 1e-5 of its max."""
     monkeypatch.setenv("CS_PAIRWISE_DEVICE_MIN", "1")
     cfg = _bench_job(str(tmp_path), 150, 130, 6)
     if case == "pair_maps_null":
@@ -154,6 +163,9 @@ def test_maps_job_matches_jax(tmp_path, monkeypatch, case):
                    set_null_voltages_to_nodata="True")
     elif case == "cum_only_log":
         cfg.update(write_cum_cur_map_only="True", log_transform_maps="True")
+    elif case == "pair_maps_tif":
+        cfg.update(write_cur_maps="True", write_volt_maps="True",
+                   write_as_tif="True")
     else:
         pairs = tmp_path / "pairs.txt"
         pairs.write_text("mode exclude\n1 2\n3 5\n")
@@ -173,6 +185,9 @@ def test_maps_job_matches_jax(tmp_path, monkeypatch, case):
         assert len(maps) == 2 * 15 + 2           # per pair, cum, max
     elif case == "cum_only_log":
         assert maps == ["_cum_curmap.asc"]
+    elif case == "pair_maps_tif":
+        assert maps == []
+        assert len([f for f in files if f.endswith(".tif")]) == 2 * 15 + 1
     else:
         assert maps == []
         assert rt[1, 2] == rt[2, 1] == -1        # excluded: never solved

@@ -203,11 +203,9 @@ def _check_grid(path, ref, label):
     assert d2 < 1e-6, f"{label}: grid sum-sq diff {d2}"
 
 
-# sgVerify1's INI asks for cholmod and a GeoTIFF polygon file: it runs
-# with solver = cg+amg and the same polygons as AAGrid (polygons.asc,
-# read identically by the JAX package)
-_SG1 = {"solver": "cg+amg",
-        "polygon_file": "input/raster/pairwise/1/polygons.asc"}
+# sgVerify1's INI asks for cholmod: it runs with solver = cg+amg, on its
+# own GeoTIFF polygon file
+_SG1 = {"solver": "cg+amg"}
 
 
 @pytest.mark.parametrize("n,device_min,override", [

@@ -320,7 +320,36 @@ def test_prepare_buckets_and_records_stats():
         np.pad(np.where(g > 0, g, 0.0), ((0, 106), (0, 38))), True)
 
 
-def test_prepare_refuses_grids_above_the_device_build():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpr.prepare_stencil_solver_from_gmap(
-            np.ones((1100, 1100)), False, False, "cpu")
+class _Built(Exception):
+    pass
+
+
+@pytest.mark.parametrize("shape,pen,build", [
+    ((1100, 1100), False, "host"),      # 1.21M cells
+    ((1000, 1200), False, "device"),    # exactly CS_DEVICE_MG_MAX
+    ((1050, 1100), False, "device"),    # 1.155M cells, 1.327M padded
+    ((1050, 1100), True, "host"),       # the pen setup counts the padded
+])
+def test_prepare_refuses_grids_above_the_device_build(monkeypatch, shape,
+                                                      pen, build):
+    """Grids above CS_DEVICE_MG_MAX (default 1200000 cells, read at call
+    time) are refused by the device hierarchy build and take the JAX
+    package's host-built route (tests/test_torch_large.py holds that
+    route against the JAX package).  As there, the plain setup counts
+    the unpadded cells and the pen-aware one the padded cells."""
+    monkeypatch.delenv("CS_DEVICE_MG_MAX", raising=False)
+
+    def stop_at(kind):
+        def build_fn(*a, **k):
+            raise _Built(kind)
+        return build_fn
+    monkeypatch.setattr(tpr, "build_geo_mg_device", stop_at("device"))
+    monkeypatch.setattr(tpr, "build_geo_mg", stop_at("host"))
+    monkeypatch.setattr(tpr, "stencil_planes_np", lambda *a: None)
+    g = np.ones(shape)
+    with pytest.raises(_Built, match=build):
+        if pen:
+            tpr.prepare_stencil_solver_from_gmap_pen(
+                g, False, False, np.zeros(shape), "cpu")
+        else:
+            tpr.prepare_stencil_solver_from_gmap(g, False, False, "cpu")
