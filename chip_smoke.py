@@ -129,13 +129,46 @@ Phases (any failure exits non-zero; nothing is caught):
      (the host-built route on both devices) and a 128 x 4200 job (fine
      level 128 x 4224) on "cuda" and on "cpu": resistances to 1e-5
      relative and the same CG iteration count;
-  14. print the kernels line, the card line and, last, the result line.
+  14. (first, right after the build) warmup() of the bench job in a
+     process that has run no job yet, then the bench job: both walls;
+  15. (after phase 9) eight 301 x 301 Omniscape windows of the bench
+     map (radius 150, a source of 1 on every habitat cell, one ground
+     of value 1 at a habitat centre, tests/test_internal.py's cs_cfg
+     with cg+amg) through compute_omniscape_current on the card, with
+     the counters zeroed just before the eight: ms per window, launches
+     per kernel and shape, every kernel launched, each window's map
+     within 1e-5 of max of the CPU run's, and every kernel held against
+     its plain version at each shape the windows launched it at, on
+     that level of the last window's pen-baked hierarchy, at B = 1 and
+     with phase 2's per-cell tolerance for a penalty-baked level;
+  16. the mesh on virtual shards of the card (parallel/mesh.py's device
+     list patched to cuda:0 four times): the bench job on (4,1) and
+     (2,2) (a warm run, then the one checked), resistances within 1e-5 relative of phase 3's; the advanced
+     job on (4,1) (the masked preconditioner), voltages within 1e-5 of
+     max of phase 7's; a 256 x 256 job on a (2,2) mesh of the card and
+     of the CPU, CG passes within one, resistances within 1e-5; a 2048 x
+     2048 job (4.19M cells, above CS_STREAM_BUILD_MIN) on (4,1) through
+     the streamed build, its hierarchy equal to the materialized build's
+     array for array, resistances within 1e-5 of the materialized run's;
+     per-pass CG counts and launches per shape printed for each, and
+     every kernel each run launched held against its plain version on
+     every shard of that run's hierarchy at the shard's halo-extended
+     shape and the run's batch per column group (phase 2's tolerance),
+     shard 0's launch timed beside its byte bound;
+  17. print the kernels line, the card line and, last, the result line.
+
+With --cards, on a machine with two cards or more, it runs only the
+build, the bench and advanced jobs on one card, and phase 16 across
+every card in place of the virtual shards (n cards: shapes (n,1) and
+the squarest (r,n/r)), each check held against the one-card runs;
+then the result line.
 
 Exits 2 without printing a result when no CUDA device is available.
 """
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -902,45 +935,62 @@ def phase_pen_kernels(gmap, cond, dev):
     cell, |kernel - plain| <= TOL * (|plain| + max |plain| over the
     unpenalized cells), and per column for matvec_pap's p.Ap.  Returns
     {B: {name: worst ratio of error to that bound's scale}}."""
-    from circuitscape_tpu_torch.solve.geomg import (_diag_from_planes_torch,
-                                                    _restrict)
     from circuitscape_tpu_torch.solve.prepare import \
         prepare_stencil_solver_from_gmap_pen
     _, prec, _, _, _ = prepare_stencil_solver_from_gmap_pen(
         gmap, False, False, cond, dev)
     rng = np.random.default_rng(17)
-    worst = {B: {name: 0.0 for name, _, _ in KERNELS} for B in PEN_BATCHES}
+    names = [name for name, _, _ in KERNELS]
+    worst = {B: {name: 0.0 for name in names} for B in PEN_BATCHES}
     for L in prec.levels:
-        A, H, W = L.A, *L.A.shape
-        pen = (A.diag - _diag_from_planes_torch(A.we, A.ws, A.wse,
-                                                A.wne)) > 0
-        masks = {(H, W): pen,
-                 (-(-H // 2), -(-W // 2)): _restrict(pen[None].float())[0] > 0}
         for B in PEN_BATCHES:
-            blocks = [torch.as_tensor(rng.standard_normal((B, H, W)),
-                                      dtype=torch.float32, device=dev)
-                      for _ in range(4)]
-            for name, _, _ in KERNELS:
-                kern, plain = _pairs(name, A, L.inv_diag, blocks)
-                for g_, r_ in zip(_as_tuple(kern()), _as_tuple(plain())):
-                    if r_.dim() == 1:
-                        scale = r_.abs()
-                    else:
-                        m = masks[tuple(r_.shape[-2:])]
-                        scale = r_.abs() + r_.abs()[:, ~m].max()
-                    rel = float(((g_ - r_).abs() / scale).max())
-                    if not rel <= TOL:
-                        raise AssertionError(
-                            f"{name} on the pen-baked level {H}x{W} at "
-                            f"B={B}: error {rel} of the per-cell scale > "
-                            f"{TOL}")
-                    worst[B][name] = max(worst[B][name], rel)
-        note(f"pen-baked level {H}x{W}: {int(pen.sum())} penalized cells, "
-             f"diag max/median {float(A.diag.max() / A.diag.median()):.3g}; "
-             f"all seven kernels agree per cell at B in {PEN_BATCHES}")
+            for name, rel in check_pen_level(L, B, names, dev, rng).items():
+                worst[B][name] = max(worst[B][name], rel)
+        A = L.A
+        note(f"pen-baked level {A.shape[0]}x{A.shape[1]}: "
+             f"{int(_penalized(A).sum())} penalized cells, diag max/median "
+             f"{float(A.diag.max() / A.diag.median()):.3g}; all seven "
+             f"kernels agree per cell at B in {PEN_BATCHES}")
     for B, w in worst.items():
         note(f"pen-baked hierarchy B={B}, worst error per cell scale: " +
              ", ".join(f"{k} {v:.2e}" for k, v in w.items()))
+    return worst
+
+
+def _penalized(A):
+    """The cells of a pen-baked level whose diagonal carries a ground."""
+    from circuitscape_tpu_torch.solve.geomg import _diag_from_planes_torch
+    return (A.diag - _diag_from_planes_torch(A.we, A.ws, A.wse, A.wne)) > 0
+
+
+def check_pen_level(L, B, names, dev, rng):
+    """Each kernel of `names` against its plain version on one level of a
+    pen-baked hierarchy at batch B, per cell: |kernel - plain| <= TOL *
+    (|plain| + max |plain| over the unpenalized cells), per column for
+    matvec_pap's p.Ap.  Returns {name: worst ratio of error to scale}."""
+    from circuitscape_tpu_torch.solve.geomg import _restrict
+    A, H, W = L.A, *L.A.shape
+    pen = _penalized(A)
+    masks = {(H, W): pen,
+             (-(-H // 2), -(-W // 2)): _restrict(pen[None].float())[0] > 0}
+    blocks = [torch.as_tensor(rng.standard_normal((B, H, W)),
+                              dtype=torch.float32, device=dev)
+              for _ in range(4)]
+    worst = {}
+    for name in names:
+        kern, plain = _pairs(name, A, L.inv_diag, blocks)
+        for g_, r_ in zip(_as_tuple(kern()), _as_tuple(plain())):
+            if r_.dim() == 1:
+                scale = r_.abs()
+            else:
+                m = masks[tuple(r_.shape[-2:])]
+                scale = r_.abs() + r_.abs()[:, ~m].max()
+            rel = float(((g_ - r_).abs() / scale).max())
+            if not rel <= TOL:
+                raise AssertionError(
+                    f"{name} on the pen-baked level {H}x{W} at B={B}: "
+                    f"error {rel} of the per-cell scale > {TOL}")
+            worst[name] = max(worst.get(name, 0.0), rel)
     return worst
 
 
@@ -1081,6 +1131,7 @@ def phase_advanced(cfg, gmap, src, cond):
          f"{MAIN_HW[0]}x{MAIN_HW[1]} {fine} launches (B = 1: phase 2's "
          "B = 32 level times do not apply; profile_torch.py --advanced "
          "gives its kernel times)")
+    return v
 
 
 def check_unfused(label, launches, launches_at, iters):
@@ -1980,7 +2031,357 @@ def agree_jobs(d, label, cfg, n, nmaps=0, build=None):
          f"{worst:.3e} of max |map|")
 
 
-def main():
+# --- the rest of the surface: Omniscape windows, warmup, the mesh ----------
+
+OMNI_RADIUS = 150          # 301 x 301 windows, 90,601 cells each
+OMNI_CENTRES = [(r, c) for r in (200, 400, 600, 800) for c in (250, 750)]
+OMNI_CFG = {               # tests/test_internal.py:160-171, with cg+amg
+    "ground_file_is_resistances": "True", "use_direct_grounds": "False",
+    "output_file": "temp", "write_cum_cur_map_only": "False",
+    "scenario": "Advanced", "suppress_messages": "True",
+    "connect_four_neighbors_only": "False", "solver": "cg+amg",
+    "cholmod_batch_size": "1000", "data_type": "raster"}
+
+
+def omniscape_windows(gmap):
+    """Eight moving windows of the bench map as Omniscape cuts them:
+    301 x 301 conductance around a habitat centre (the nearest habitat
+    cell to each of a 4 x 2 grid of centres), a source of 1 on every
+    habitat cell and one ground of value 1 (a resistance) at the
+    centre."""
+    rad = OMNI_RADIUS
+    out = []
+    for r, c in OMNI_CENTRES:
+        while gmap[r, c] <= 0:
+            c += 1
+        cond = gmap[r - rad:r + rad + 1, c - rad:c + rad + 1].copy()
+        gnd = np.zeros_like(cond)
+        gnd[rad, rad] = 1.0
+        out.append((cond, (cond > 0).astype(np.float64), gnd))
+    return out
+
+
+def phase_omniscape(gmap):
+    """The Omniscape entry on eight windows, on the card (launch counters
+    zeroed just before the eight) and on the CPU: each window's current
+    map within TOL of max of the CPU's; launches per kernel and ms per
+    window printed."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    from circuitscape_tpu_torch.solve import prepare
+    wins = omniscape_windows(gmap)
+    setup, built = prepare.prepare_stencil_solver_from_gmap_pen, []
+
+    def keep(*a, **k):       # the last window's pen-baked hierarchy
+        out = setup(*a, **k)
+        built[:] = [out[1]]
+        return out
+    prepare.prepare_stencil_solver_from_gmap_pen = keep
+    try:
+        cst.compute_omniscape_current(*wins[0], OMNI_CFG, device="cuda")
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        maps, times = [], []
+        for w in wins:
+            t = time.perf_counter()
+            maps.append(cst.compute_omniscape_current(*w, OMNI_CFG,
+                                                      device="cuda"))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+    finally:
+        prepare.prepare_stencil_solver_from_gmap_pen = setup
+    launches, launches_at = dict(cs.LAUNCHES), dict(cs.LAUNCHES_AT)
+    check_launched(launches, "Omniscape windows")
+    # every kernel at every shape the windows launched it at, on the
+    # window hierarchy's level of that shape, at the windows' B = 1
+    levels = {tuple(L.A.shape): L for L in built[0].levels}
+    by_level = {}
+    for name, H, W in launches_at:
+        if (H, W) not in levels:
+            raise AssertionError(f"Omniscape: {name} launched at {H}x{W}, "
+                                 f"no level of the window hierarchy has it")
+        by_level.setdefault((H, W), []).append(name)
+    rng, kworst = np.random.default_rng(19), {}
+    for hw, names in sorted(by_level.items()):
+        for name, rel in check_pen_level(levels[hw], 1, names, "cuda",
+                                         rng).items():
+            kworst[name] = max(kworst.get(name, 0.0), rel)
+    worst = 0.0
+    for k, (w, m) in enumerate(zip(wins, maps)):
+        ref = cst.compute_omniscape_current(*w, OMNI_CFG, device="cpu")
+        err = float(np.abs(m - ref).max()) / float(np.abs(ref).max())
+        if not (m.shape == w[0].shape and np.all(np.isfinite(m)) and
+                m.max() > 0 and err <= TOL):
+            raise AssertionError(f"Omniscape window {k}: max {m.max()}, "
+                                 f"{err} of max |cpu map|")
+        worst = max(worst, err)
+    note(f"Omniscape: {len(wins)} windows of {wins[0][0].shape[0]}^2 on "
+         f"the card, ms per window " +
+         ", ".join(f"{t * 1e3:.1f}" for t in times) +
+         f"; launches over the eight {launches}; per shape "
+         f"{dict(sorted(launches_at.items()))}; cuda and cpu maps "
+         f"agree to {worst:.3e} of max |map|; at those shapes and B = 1 "
+         f"every kernel agrees with its plain version per cell (worst "
+         f"error per cell scale: " +
+         ", ".join(f"{k} {v:.2e}" for k, v in sorted(kworst.items())) + ")")
+
+
+def phase_warmup(cfg):
+    """warmup() of the bench job on the card, in a process that has run
+    no job yet, then the bench job itself."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch.warmup import warmup
+    secs = warmup(cfg, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cst.compute(cfg, device="cuda")
+    torch.cuda.synchronize()
+    note(f"warmup of the bench job: {secs:.3f} s; the bench job right "
+         f"after it: {time.perf_counter() - t:.3f} s")
+
+
+class virtual_mesh:
+    """A mesh shaped by CS_MESH_SHAPE (forced on) while active, over
+    `devices` (default: virtual shards of dev, one per position):
+    parallel/mesh.visible_devices patched to return them."""
+
+    def __init__(self, dev, shape, devices=None, **env):
+        n = int(np.prod([int(v) for v in shape.split(",")]))
+        self.devices = list(devices or [torch.device(dev)] * n)
+        self.env = env_set(CS_MESH_SHAPE=shape, CS_FORCE_MESH="1", **env)
+
+    def __enter__(self):
+        from circuitscape_tpu_torch.parallel import mesh
+        self.real = mesh.visible_devices
+        mesh.visible_devices = lambda: list(self.devices)
+        self.env.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        from circuitscape_tpu_torch.parallel import mesh
+        mesh.visible_devices = self.real
+        self.env.__exit__()
+
+
+def _sync(devices):
+    """Wait for every CUDA device among devices."""
+    for d in {torch.device(d) for d in devices}:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def mesh_job(cfg, dev, shape, label, devices=None, **env):
+    """One job on a mesh (virtual shards of dev, or `devices`) with the
+    launch counters zeroed just before it.  Returns (result, seconds,
+    launches per shape, per-pass CG counts, stats)."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch import stats
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    with virtual_mesh(dev, shape, devices, **env) as vm:
+        _sync(vm.devices)
+        cs.reset_launch_counts()
+        t = time.perf_counter()
+        r = cst.compute(cfg, device=dev)
+        _sync(vm.devices)
+        dt = time.perf_counter() - t
+    st = stats.finalize()
+    if not any(k.endswith("/shard") for k in st.get("mg_kernels", [])):
+        raise AssertionError(f"{label}: the job did not run on the mesh "
+                             f"({st.get('mg_kernels')})")
+    at = dict(cs.LAUNCHES_AT)
+    note(f"{label} on a ({shape}) mesh of {dev}: {dt:.3f} s, per-pass CG "
+         f"{st.get('pass_iters')}, mg_kernels {st.get('mg_kernels')}, "
+         f"build {st.get('mg_build')}; LAUNCHES_AT "
+         f"{dict(sorted(at.items()))}")
+    return r, dt, at, st.get("pass_iters", []), st
+
+
+def check_mesh_kernels(gmap, B, launches_at, dev, shape, label,
+                       devices=None, **env):
+    """Each kernel a mesh run launched, at each per-shard shape it
+    launched at, held against its plain version on every shard of the
+    run's own hierarchy with that shape (the shard's halo-extended
+    planes, on each device that holds them), at the run's batch per
+    column group B, with phase 2's tolerance."""
+    from circuitscape_tpu_torch.parallel.mesh import _on
+    from circuitscape_tpu_torch.solve.prepare import (
+        prepare_stencil_solver_from_gmap)
+    with virtual_mesh(dev, shape, devices, **env):
+        _, prec, _, _ = prepare_stencil_solver_from_gmap(gmap, False, False,
+                                                         dev)
+    by_shape, seen = {}, set()
+    for L in prec.levels:
+        for i, row in enumerate(L.A.ops):
+            for j, op in enumerate(row):
+                if id(op) not in seen:
+                    seen.add(id(op))
+                    by_shape.setdefault(tuple(op.shape), []).append(
+                        (op, L.A.dinv[i][j]))
+    from circuitscape_tpu_torch import stats
+    rate = stats.device_bytes_per_s(torch.cuda.get_device_name(dev))
+    n, worst, times = 0, 0.0, []
+    for (name, H, W), _ in sorted(launches_at.items()):
+        ops = by_shape.get((H, W))
+        if not ops:
+            raise AssertionError(f"{label}: {name} launched at {H}x{W}, "
+                                 f"no shard of the mesh hierarchy has it")
+        for k, (op, dinv) in enumerate(ops):
+            odev = op.diag.device
+            with _on(odev):
+                blocks = _card_blocks(B, H, W, odev, seed=100 + k)
+                kern, plain = _pairs(name, op, dinv, blocks)
+                worst = max(worst, check_kernel(
+                    name, kern, plain,
+                    f"{label} shard {k} on {odev} B={B} {H}x{W}"))
+                n += 1
+                if k == 0:
+                    bound = kernel_bytes(name, B, H, W) / rate * 1e3
+                    times.append(f"{name} {H}x{W} {cuda_ms(kern):.4f} ms "
+                                 f"(bound {bound:.4f})")
+    note(f"{label}: {n} per-shard kernel launches agree with their plain "
+         f"versions (worst max abs err {worst:.3e}); shard 0 at B={B}: " +
+         "; ".join(times))
+
+
+def _rel(a, b):
+    off = ~np.eye(b.shape[0] - 1, dtype=bool)
+    x, y = a[1:, 1:][off], b[1:, 1:][off]
+    return float(np.max(np.abs(x - y) / np.abs(y)))
+
+
+def mesh_shapes(n):
+    """The mesh shapes a run of n devices takes: (n, 1), and the square-
+    most (r, n / r) with r > 1 where it differs."""
+    r = max(k for k in range(1, math.isqrt(n) + 1) if n % k == 0)
+    return [f"{n},1"] + ([f"{r},{n // r}"] if 1 < r < n else [])
+
+
+def phase_mesh(d, cfg, gmap, r_plain, adv_cfg, v_adv, devices=None):
+    """The mesh on `devices` (default: four virtual shards of cuda:0,
+    where every seam exchange, per-shard launch and cross-shard sum runs
+    on the card), against single-device runs: the bench job (r_plain)
+    on each shape of mesh_shapes, the advanced job (v_adv) on (n, 1), a
+    256 x 256 job on the card and on virtual CPU shards, and a 2048 x
+    2048 job through the streamed build against the materialized one.
+    Every kernel each run launched is held against its plain version on
+    every shard that has its shape."""
+    from circuitscape_tpu_torch.solve.prepare import (
+        prepare_stencil_solver_from_gmap)
+    dev = torch.device(devices[0]) if devices else \
+        torch.device("cuda", torch.cuda.current_device())
+    n = len(devices) if devices else 4
+    shapes = mesh_shapes(n)
+    where = f"{n} cards" if devices else f"virtual shards of {dev}"
+    for shape in shapes:
+        label = f"bench job on ({shape}), {where}"
+        mesh_job(cfg, dev, shape, label, devices)               # warm
+        r, _, at, _, _ = mesh_job(cfg, dev, shape, label, devices)
+        check_resistances(r, label)
+        rel = _rel(r, r_plain)
+        if not rel <= TOL:
+            raise AssertionError(f"{label}: resistances differ from the "
+                                 f"single-device run's by {rel}")
+        note(f"{label}: resistances agree with the single-device run's to "
+             f"{rel:.3e} relative")
+        check_mesh_kernels(gmap, 32 // int(shape.split(",")[1]), at, dev,
+                           shape, label, devices)
+
+    label = f"advanced job on ({n},1), {where}"
+    v, _, at, _, st = mesh_job(adv_cfg, dev, f"{n},1", label, devices)
+    err = float(np.abs(v - v_adv).max()) / float(np.abs(v_adv).max())
+    if not err <= TOL:
+        raise AssertionError(f"{label}: voltages differ from the "
+                             f"single-device run's by {err} of max")
+    note(f"{label} (masked preconditioner, {st.get('cg_iters')} CG "
+         f"iterations): voltages agree with the single-device run's to "
+         f"{err:.3e} of max")
+    check_mesh_kernels(gmap, 1, at, dev, f"{n},1", label, devices)
+
+    sd = os.path.join(d, "mesh256")
+    os.makedirs(sd)
+    cfg256, _ = make_job(sd, 256, 256)
+    rg, _, _, pg, _ = mesh_job(cfg256, dev, shapes[-1], "256x256 job",
+                               devices)
+    rc, _, _, pc, _ = mesh_job(cfg256, torch.device("cpu"), shapes[-1],
+                               "256x256 job")
+    rel = _rel(rg, rc)
+    if not (rel <= TOL and len(pg) == len(pc) and
+            all(abs(a - b) <= 1 for a, b in zip(pg, pc))):
+        raise AssertionError(f"256x256 mesh job: cuda {pg} and cpu {pc} "
+                             f"CG passes, resistances differ by {rel}")
+    note(f"256x256 mesh job ({where}): cuda and cpu CG passes {pg} / {pc}, "
+         f"resistances agree to {rel:.3e} relative")
+
+    bd = os.path.join(d, "mesh2048")
+    os.makedirs(bd)
+    cfg2k, g2k = make_job(bd, 2048, 2048, npoints=4, seed=5)
+    runs, hier = {}, {}
+    for route, lim in (("host streamed", None), ("host", "100000000")):
+        env = {} if lim is None else {"CS_STREAM_BUILD_MIN": lim}
+        r2k, _, at, _, st = mesh_job(cfg2k, dev, f"{n},1",
+                                     f"2048x2048 job ({route} build)",
+                                     devices, **env)
+        if st.get("mg_build") != route:
+            raise AssertionError(f"2048x2048 job: build {st.get('mg_build')}"
+                                 f", expected {route}")
+        check_resistances(r2k, "2048x2048 mesh job", n=4)
+        runs[route] = r2k
+        with virtual_mesh(dev, f"{n},1", devices, **env):
+            _, prec, _, _ = prepare_stencil_solver_from_gmap(
+                g2k, False, False, dev)
+        hier[route] = [[p.cpu() for p in L.A.full().planes] +
+                       [L.inv_diag.gather().cpu()] for L in prec.levels]
+        del prec
+    for a, b in zip(hier["host streamed"], hier["host"]):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("2048x2048: the streamed hierarchy differs "
+                                 "from the materialized one")
+    if len(hier["host streamed"]) != len(hier["host"]):
+        raise AssertionError("2048x2048: level counts differ")
+    rel = _rel(runs["host streamed"], runs["host"])
+    if not rel <= TOL:
+        raise AssertionError(f"2048x2048: streamed and materialized "
+                             f"resistances differ by {rel}")
+    note(f"2048x2048 job (4.19M cells, {where}): the streamed build's "
+         f"{len(hier['host'])} levels equal the materialized build's "
+         f"array for array; resistances agree to {rel:.3e} relative")
+    check_mesh_kernels(g2k, 4, at, dev, f"{n},1",
+                       f"2048x2048 job on ({n},1)", devices)
+
+
+def main_cards(dev, dev_name):
+    """--cards: the build and phase_mesh across every visible card,
+    against one-card runs of the bench and advanced jobs."""
+    import circuitscape_tpu_torch as cst
+    devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    phase_build()
+    scratch = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(scratch, exist_ok=True)
+    d = tempfile.mkdtemp(dir=scratch)
+    try:
+        cfg, gmap = make_job(d, 1000, 1000)
+        adv_cfg, _, _, _ = make_advanced_job(tempfile.mkdtemp(dir=d),
+                                             1000, 1000)
+        with env_set(CS_DISABLE_MESH="1"):
+            cst.compute(cfg, device=dev)
+            _sync(devs)
+            t = time.perf_counter()
+            r1 = cst.compute(cfg, device=dev)
+            _sync(devs)
+            note(f"bench job on one card: {time.perf_counter() - t:.3f} s")
+            v1 = cst.compute(adv_cfg, device=dev)
+        phase_mesh(tempfile.mkdtemp(dir=d), cfg, gmap, r1, adv_cfg, v1,
+                   devices=devs)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    note(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev_name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1992,12 +2393,19 @@ def main():
     note(f"torch {torch.__version__} cuda {torch.version.cuda} on "
          f"{dev_name}")
     note(card_line())
+    if "--cards" in argv:
+        if torch.cuda.device_count() < 2:
+            print("chip_smoke --cards: needs two cards or more",
+                  file=sys.stderr)
+            return 2
+        return main_cards(dev, dev_name)
     phase_build()
     scratch = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(scratch, exist_ok=True)
     d = tempfile.mkdtemp(dir=scratch)
     try:
         cfg, gmap = make_job(d, 1000, 1000)
+        phase_warmup(cfg)
         pd = tempfile.mkdtemp(dir=d)
         poly_cfg, _, poly = make_polygon_job(pd, 1000, 1000)
         rows, level_times = phase_kernels(gmap, dev, dev_name)
@@ -2020,13 +2428,15 @@ def main():
         phase_polygons(poly_cfg, r, level_times)
         phase_regions(make_regions_job(tempfile.mkdtemp(dir=d), 1000, 1000,
                                        8), r)
-        phase_advanced(adv_cfg, gmap, adv_src, adv_cond)
+        v_adv = phase_advanced(adv_cfg, gmap, adv_src, adv_cond)
         phase_onetoall(cfg, r, level_times)
         phase_alltoone(cfg, gmap, level_times)
         phase_scale(scale_cfg, scale_times)
         phase_network(tempfile.mkdtemp(dir=d), rate, dev_name)
         phase_network_advanced(tempfile.mkdtemp(dir=d))
         phase_agree(tempfile.mkdtemp(dir=d))
+        phase_omniscape(gmap)
+        phase_mesh(tempfile.mkdtemp(dir=d), cfg, gmap, r, adv_cfg, v_adv)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     card = card_line()
@@ -2039,4 +2449,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -153,7 +153,8 @@ def resolve_conflicts(sources, grounds, policy):
     return sources, grounds, finitegrounds
 
 
-def _advanced_device_fast(prob: AdvancedProblem, flags, cfg, device):
+def _advanced_device_fast(prob: AdvancedProblem, flags, cfg, device,
+                          force_currents=False):
     """The stencil device path of advanced mode (counterpart of the JAX
     package's _advanced_device_fast).
 
@@ -164,14 +165,17 @@ def _advanced_device_fast(prob: AdvancedProblem, flags, cfg, device):
     reference skips those components, src/raster/advanced.jl:194).  A
     merged (polygon) node spreads its source and ground totals over its
     cells, and the solve runs under its projector.  Node currents
-    include the finite-ground terms (src/out.jl:193-202).
+    include the finite-ground terms (src/out.jl:193-202); they are
+    computed when a current map is asked for, or with force_currents
+    (the Omniscape entry, which writes no file).
 
     Returns (volt grid, current grid), or None where the JAX package
     takes its general path: a network, off cg+amg, a check node or a
     one-to-all / all-to-one point, grids below CS_ADVANCED_DEVICE_MIN
     cells, or nothing to solve."""
     from ..solve.prepare import prepare_stencil_solver_from_gmap_pen
-    from ..solve.stencil import (build_poly_projector,
+    from ..solve.stencil import (advanced_ground_penalty,
+                                 build_poly_projector,
                                  stencil_node_currents,
                                  stencil_solve_advanced_batch)
 
@@ -233,6 +237,14 @@ def _advanced_device_fast(prob: AdvancedProblem, flags, cfg, device):
             prepare_stencil_solver_from_gmap_pen(
                 prob.cellmap, flags.avg_res, flags.four_neighbors, pen_spec,
                 device)
+    with_pen = pen_host is not None
+    if not with_pen:
+        # a mesh run: the sharded hierarchy carries no penalty, so the
+        # grounds go to the masked preconditioner, as in the JAX package
+        # (with a single direct ground at megacell scale it converges
+        # poorly; multi-ground jobs are unaffected)
+        pen_host = np.where(np.isinf(pen_spec),
+                            advanced_ground_penalty(S64), pen_spec)
     Hp, Wp = S64.shape
     dev = S64.diag.device
     proj = (build_poly_projector(nodemap, S64.shape, dev)
@@ -247,7 +259,7 @@ def _advanced_device_fast(prob: AdvancedProblem, flags, cfg, device):
             S64, sc[None], src_grid[rr, cc_][None], sc[None],
             pen_host[rr, cc_][None], rtol=consts.CG_RTOL,
             itmax=consts.CG_ITMAX, prec=prec, prec_apply=geomg_apply,
-            proj=proj, pen_in_prec=True)
+            proj=proj, pen_in_prec=with_pen)
         stats.record_solve(tuple(X.shape), iters, time.perf_counter() - t0)
     if np.any(rel >= consts.RESIDUAL_GATE):
         raise SolverFailedError(
@@ -260,7 +272,7 @@ def _advanced_device_fast(prob: AdvancedProblem, flags, cfg, device):
     volt[nodemap == 0] = 0
 
     outcurr = np.zeros((H, W), volt.dtype)
-    if of.write_cur_maps or of.write_cum_cur_map_only:
+    if force_currents or of.write_cur_maps or of.write_cum_cur_map_only:
         with CSTIMER("node currents + reduce"):
             if fg_sentinel:
                 ncur = stencil_node_currents(S64, X, proj=proj)[0]
@@ -274,6 +286,7 @@ def _advanced_device_fast(prob: AdvancedProblem, flags, cfg, device):
                     S64, X, torch.as_tensor(fin_grid, device=dev),
                     proj=proj)[0]
             outcurr = ncur.to(tdt).cpu().numpy()[:H, :W].copy()
+    if of.write_cur_maps or of.write_cum_cur_map_only:
         with CSTIMER("write maps"):
             out.write_grid(outcurr.copy(), "", cfg, prob.hbmeta,
                            cellmap=prob.cellmap)
@@ -288,33 +301,9 @@ def _node_currents_with_fg(S, V, fg_grid, proj=None):
     """Node currents including the finite-ground diagonal terms
     (src/out.jl:193-206): inflow += relu(-fg v), outflow += relu(fg v),
     node current = max of the two; the branch cutoff and projector as in
-    stencil_node_currents."""
-    from ..solve.stencil import _sh, poly_sum
-
-    dirs = [(0, 1, S.we), (0, -1, _sh(S.we[None], 0, 1)[0]),
-            (1, 0, S.ws), (-1, 0, _sh(S.ws[None], 1, 0)[0]),
-            (1, 1, S.wse), (-1, -1, _sh(S.wse[None], 1, 1)[0]),
-            (-1, 1, S.wne), (1, -1, _sh(S.wne[None], -1, 1)[0])]
-    maxb = torch.zeros(V.shape[0], dtype=V.dtype, device=V.device)
-    flows = []
-    for dr, dc, w in dirs:
-        f = w[None] * (_sh(V, -dr, -dc) - V)
-        flows.append(f)
-        maxb = torch.maximum(maxb, torch.amax(torch.abs(f), dim=(-2, -1)))
-    thr = (1e-8 * maxb)[:, None, None]
-    inflow = torch.zeros_like(V)
-    outflow = torch.zeros_like(V)
-    for f in flows:
-        f = torch.where(torch.abs(f) < thr, 0.0, f)
-        inflow = inflow + torch.clamp_min(f, 0.0)
-        outflow = outflow + torch.clamp_min(-f, 0.0)
-    fgv = fg_grid[None] * V
-    inflow = inflow + torch.clamp_min(-fgv, 0.0)
-    outflow = outflow + torch.clamp_min(fgv, 0.0)
-    if proj is not None:
-        inflow = poly_sum(proj, inflow)
-        outflow = poly_sum(proj, outflow)
-    return torch.maximum(inflow, outflow)
+    stencil_node_currents, which computes them (on a mesh too)."""
+    from ..solve.stencil import stencil_node_currents
+    return stencil_node_currents(S, V, proj=proj, fg=fg_grid)
 
 
 def advanced_kernel(prob: AdvancedProblem, flags, cfg, device):

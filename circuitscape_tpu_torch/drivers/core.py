@@ -427,7 +427,8 @@ def _stencil_shortcut_solve(prob, flags, resistances, voltmatrix,
         # device's free memory, floored to a power of two because the
         # fused solve pads its batch UP to one
         per_col = H * W * 8 * 8
-        budget = solve_chunk_budget(H * W, S64.diag.device)
+        budget = solve_chunk_budget(H * W, S64.diag.device,
+                                    mesh=getattr(S64, "mesh", None))
         step = max(1, min(_shortcut_chunk_cap, budget // max(per_col, 1)))
         if max_par > 0:
             # Circuitscape-4 `max_parallel` semantics: cap the number of
@@ -620,7 +621,8 @@ def _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
     budget = solve_chunk_budget(
         H * W, dev, env_var=("CS_MAPS_CHUNK_BYTES"
                              if os.environ.get("CS_MAPS_CHUNK_BYTES")
-                             else "CS_SHORTCUT_CHUNK_BYTES"))
+                             else "CS_SHORTCUT_CHUNK_BYTES"),
+        mesh=getattr(S64, "mesh", None))
     step = max(1, min(32, budget // max(per_col, 1)))
     if getattr(cfg, "max_parallel", 0) > 0:
         step = min(step, cfg.max_parallel)

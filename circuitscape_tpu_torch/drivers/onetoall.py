@@ -99,10 +99,14 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
         if bake_pen:
             pen_spec = np.zeros((H, W))
             pen_spec[np.asarray(rows) - 1, np.asarray(cols) - 1] = np.inf
-            S64, prec, geomg_apply, _, _ = \
+            S64, prec, geomg_apply, _, pen_host = \
                 prepare_stencil_solver_from_gmap_pen(
                     gmap, flags.avg_res, flags.four_neighbors, pen_spec,
                     device)
+            # on a mesh the hierarchy carries no penalty (pen_host is
+            # None): the plain mesh setup it returned runs the columns
+            # with the masked preconditioner, as the JAX package's does
+            bake_pen = pen_host is not None
         else:
             S64, prec, geomg_apply, _ = prepare_stencil_solver_from_gmap(
                 gmap, flags.avg_res, flags.four_neighbors, device)
@@ -175,7 +179,8 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
     # the max_parallel cap, then the power-of-two floor, in that order
     per_col = Hp * Wp * 8 * 8
     budget = solve_chunk_budget(Hp * Wp, dev,
-                                env_var="CS_ONETOALL_CHUNK_BYTES")
+                                env_var="CS_ONETOALL_CHUNK_BYTES",
+                                mesh=getattr(S64, "mesh", None))
     step = max(1, min(4096, budget // max(per_col, 1)))
     if getattr(cfg, "max_parallel", 0) > 0:
         step = min(step, cfg.max_parallel)

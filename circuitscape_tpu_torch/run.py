@@ -4,8 +4,9 @@ Counterpart of circuitscape_tpu/run.py.  Parity reference: src/run.jl:1-67
 (compute, _run, _compute).  Runs on the GPU ("cuda") unless the caller
 passes device="cpu".  Rasters arrive as AAGrid, GeoTIFF, ESRI EHdr,
 ENVI or NPY files; grids of any size that fits the card run on the
-stencil path.  What this package does not carry yet (the multi-device
-mesh) is named in ROADMAP.md.
+stencil path, and with more than one card visible the stencil path
+row-shards over a device mesh (parallel/mesh.py), as the JAX package
+does over its devices.
 """
 
 from __future__ import annotations

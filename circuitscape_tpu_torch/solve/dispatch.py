@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import os
 import time
+from collections import Counter
 
 import numpy as np
 import scipy.sparse as sp
@@ -49,16 +50,26 @@ def _free_bytes(device: torch.device) -> int:
 
 
 def solve_chunk_budget(cells: int, device: torch.device,
-                       env_var: str = "CS_SHORTCUT_CHUNK_BYTES") -> int:
+                       env_var: str = "CS_SHORTCUT_CHUNK_BYTES",
+                       mesh=None) -> int:
     """Bytes available for per-RHS-column solve state.  Called once the
     operator and hierarchy are resident, so the free memory already
     excludes them; 10% is held back for allocator fragmentation.  The
     env override wins (tests force multi-chunk paths with tiny
-    budgets)."""
+    budgets).
+
+    On a mesh a column's bytes spread over its positions, so the budget
+    is set by the device with the least free memory per position it
+    holds: on virtual shards of one device every shard's bytes count
+    against that device."""
     env = os.environ.get(env_var)
     if env:
         return int(env)
-    return max(cells, int(0.9 * _free_bytes(device)))
+    if mesh is None:
+        return max(cells, int(0.9 * _free_bytes(device)))
+    held = Counter(d for row in mesh.devices for d in row)
+    return max(cells, min(int(0.9 * _free_bytes(d)) * mesh.size // k
+                          for d, k in held.items()))
 
 
 def pow2_floor(n: int) -> int:
@@ -231,6 +242,12 @@ _SOLVER_REGISTRY: dict = {
     "mklpardiso": (DirectSolver, "Solver used: Pardiso"),
     "accelerate": (DirectSolver, "Solver used: Apple Accelerate"),
 }
+
+
+def register_solver(name: str, factory, message: str = None) -> None:
+    """Register (or override) a solver tier under `name`: any INI with
+    `solver = <name>` then routes through factory(cfg)."""
+    _SOLVER_REGISTRY[name.lower()] = (factory, message)
 
 
 def get_solver(cfg):

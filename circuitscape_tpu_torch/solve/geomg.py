@@ -25,6 +25,13 @@ in the JAX package, which differ only in rounding:
     fused_smoother=False): an elementwise Dinv pass and the fused
     cheb_step, plus a matvec for the post-smoother's residual.
 The residual + restrict of every level is one residual_restrict pass.
+
+The generic smoother and the V-cycle reach a level only through its
+operator's methods (matvec, cheb_step, residual_restrict, prolong,
+coarse_solve).  On a device mesh (parallel/mesh.shard_hierarchy) each
+level's operator is a ShardStencil, whose methods run per shard with
+halo rows, and every level takes the generic configuration, as the JAX
+package's mesh hierarchy does.
 """
 
 from __future__ import annotations
@@ -35,8 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .cuda_stencil import (cheb_finish, cheb_init, cheb_step, matvec,
-                           residual_init, residual_restrict)
+from .cuda_stencil import cheb_finish, cheb_init, residual_init
 from .stencil import StencilOperator, _sh, operator_from_numpy, \
     stencil_matvec
 
@@ -299,6 +305,47 @@ def _coarsen_planes(we, ws, wse, wne):
     return cE, cS, cSE, cNE
 
 
+def _coarsen_planes_slab(we, ws, wse, wne, first: bool, last: bool):
+    """_coarsen_planes for one even-aligned row slab of the fine grid
+    (geomg._coarsen_planes_slab of the JAX package), for the streamed
+    mesh build (solve/prepare.py): each shard's slab coarsens on its own,
+    so the full fine planes never exist on the host.  Row-boundary
+    zeroing applies only at the true grid edges (first / last), and the
+    NE even-even contribution of the slab's first patch row, which
+    belongs to the previous slab's last coarse S row, is returned as
+    `carry` instead of being dropped.
+
+    Returns (cE, cS, cSE, cNE, carry), carry a (wc,) row (zeros when
+    first: the full-grid build drops it there too)."""
+    H, W = we.shape
+    assert H % 2 == 0, "slab height must be even"
+    we, ws, wse, wne = map(_pad_even, (we, ws, wse, wne))
+    H, W = we.shape
+    hc, wc = H // 2, W // 2
+
+    def patch(i_par, j_par, p):
+        return p[i_par::2, j_par::2][:hc, :wc]
+
+    cE = patch(0, 1, we) + patch(1, 1, we) + patch(0, 1, wse) + \
+        patch(1, 1, wne)
+    cS = patch(1, 0, ws) + patch(1, 1, ws) + patch(1, 0, wse)
+    cSE = patch(1, 1, wse).copy()   # patch() returns a view
+    cNE = patch(0, 1, wne).copy()
+    n_up = patch(0, 0, wne)
+    cS[:-1, :] += n_up[1:, :]
+    carry = np.zeros(wc) if first else n_up[0, :].copy()
+
+    cE[:, -1] = 0
+    cSE[:, -1] = 0
+    cNE[:, -1] = 0
+    if last:
+        cS[-1, :] = 0
+        cSE[-1, :] = 0
+    if first:
+        cNE[0, :] = 0
+    return cE, cS, cSE, cNE, carry
+
+
 def _np_diag(we, ws, wse, wne):
     """Host Laplacian diagonal from the four directed planes."""
     diag = np.zeros(we.shape)
@@ -478,14 +525,14 @@ def _cheb_smooth(L: GeoMgLevel, b, x):
         r0, x1 = residual_init(L.A, L.inv_diag, b, x, c)
         return cheb_finish(L.A, L.inv_diag, r0, x1, c, ca, cb)
 
-    r = b if x is None else b - matvec(L.A, x)
+    r = b if x is None else b - L.A.matvec(x)
     d = (1.0 / theta) * (Dinv * r)
     x = d if x is None else x + d
     for _ in range(CHEB_DEGREE - 1):
         rho_new = 1.0 / (2.0 * sigma - rho)
-        r, d, x = cheb_step(L.A, L.inv_diag, r, d, x,
-                            ca=float(rho_new * rho),
-                            cb=float(2.0 * rho_new / delta))
+        r, d, x = L.A.cheb_step(L.inv_diag, r, d, x,
+                                ca=float(rho_new * rho),
+                                cb=float(2.0 * rho_new / delta))
         rho = rho_new
     return x
 
@@ -493,33 +540,47 @@ def _cheb_smooth(L: GeoMgLevel, b, x):
 def full_precision_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b in full float32: a float32 matmul on the card may use TF32
     (about 3 decimal digits), which would truncate a coarse correction
-    the way bf16 MXU passes did on the TPU.  Both switches are set off
-    here, where the only matmuls of the solves (the coarse
-    pseudo-inverses of the geometric and the algebraic V-cycle) run."""
+    the way bf16 MXU passes did on the TPU.  Both switches are off for
+    this product, where the only matmuls of the solves (the coarse
+    pseudo-inverses of the geometric and the algebraic V-cycle) run, and
+    are put back after it, so a program embedding the package keeps its
+    own setting."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return a @ b
+    try:
+        return a @ b
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def coarse_solve(pinv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The coarsest grid's dense pseudo-inverse solve of blocks b."""
+    B, hc, wc = b.shape
+    return full_precision_matmul(b.reshape(B, hc * wc),
+                                 pinv.T).reshape(B, hc, wc)
 
 
 def _vcycle(hier: GeoMgHierarchy, lvl: int, b):
-    if lvl == len(hier.levels):
-        B = b.shape[0]
-        hc, wc = hier.coarse_shape
-        x = full_precision_matmul(b.reshape(B, hc * wc), hier.coarse_pinv.T)
-        return x.reshape(B, hc, wc)
     L = hier.levels[lvl]
+    coarse = hier.levels[lvl + 1].A if lvl + 1 < len(hier.levels) else None
     x = _cheb_smooth(L, b, None)        # pre-smooth from zero
     # fused residual + restrict: the pre-smooth residual exists only to
     # be restricted, so the kernel never writes it
-    rc = residual_restrict(L.A, b, x)
-    xc = _vcycle(hier, lvl + 1, rc)
+    rc = L.A.residual_restrict(b, x, coarse)
+    xc = (_vcycle(hier, lvl + 1, rc) if coarse is not None else
+          L.A.coarse_solve(hier.coarse_pinv, rc))
     # piecewise-constant-prolongator MG underestimates the correction;
     # a fixed over-correction factor restores grid-independent rates
-    x = x + hier.overcorrect * _prolong(xc, b.shape[1], b.shape[2])
+    x = x + hier.overcorrect * L.A.prolong(xc)
     x = _cheb_smooth(L, b, x)           # post-smooth
     return x
 
 
 def geomg_apply(hier: GeoMgHierarchy, R):
     """Preconditioner application M^-1 R for the stencil CG."""
+    if not hier.levels:     # a grid no larger than the coarse one
+        return coarse_solve(hier.coarse_pinv, R)
     return _vcycle(hier, 0, R)

@@ -22,6 +22,12 @@ inner CG passes run in float32 on the hierarchy's fine operator, whose
 matvecs go through the hand-written kernels of solve/cuda_stencil.py.
 The JAX while_loops are Python loops here: each CG iteration syncs with
 the host once for its stop test.
+
+The loops reach the operator only through its methods (matvec,
+matvec_pap, project, layout, gather, ...).  On a device mesh
+(parallel/mesh.py) the operator is a ShardStencil with the same methods
+and the blocks are MeshBlocks: the same loops run on them, and the
+solvers hand back full tensors on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -62,10 +68,74 @@ class StencilOperator:
     def planes(self):
         return (self.we, self.ws, self.wse, self.wne, self.diag)
 
+    # The operations the solvers apply through their operator.  The
+    # mesh's ShardStencil (parallel/mesh.py) has the same ones, so the CG
+    # loop and the V-cycle run unchanged on either.
+
+    col_groups = 1          # the batch pads to a multiple of this
+
+    def to_dtype(self, dtype) -> "StencilOperator":
+        """Cast of all five planes (contiguous, as the kernels need)."""
+        return StencilOperator(*(p.to(dtype).contiguous()
+                                 for p in self.planes))
+
+    def layout(self, x: torch.Tensor) -> torch.Tensor:
+        """A full block laid out for this operator (here: as it is)."""
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """A block of this operator's layout as a full tensor."""
+        return x
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """L x: a float32 block through the matvec kernel, a float64 one
+        (the refinement residuals) through stencil_matvec."""
+        if x.dtype == torch.float32:
+            from .cuda_stencil import matvec
+            return matvec(self, x)
+        return stencil_matvec(self, x)
+
+    def matvec_pap(self, p: torch.Tensor):
+        """(L p, per-column p.Lp) in one kernel."""
+        from .cuda_stencil import matvec_pap
+        return matvec_pap(self, p)
+
+    def cheb_step(self, dinv, r, d, x, ca: float, cb: float):
+        """One Chebyshev step of the generic smoother (one kernel)."""
+        from .cuda_stencil import cheb_step
+        return cheb_step(self, dinv, r, d, x, ca, cb)
+
+    def residual_restrict(self, b, x, coarse=None) -> torch.Tensor:
+        """The 2x2 restriction of b - L x (one kernel), laid out for the
+        next level's operator `coarse` (None below the last level)."""
+        from .cuda_stencil import residual_restrict
+        return residual_restrict(self, b, x)
+
+    def prolong(self, xc: torch.Tensor) -> torch.Tensor:
+        """Piecewise-constant interpolation of a coarse block to this
+        operator's grid."""
+        from .geomg import _prolong
+        return _prolong(xc, *self.shape)
+
+    def coarse_solve(self, pinv, b: torch.Tensor) -> torch.Tensor:
+        """The dense pseudo-inverse solve of the grid under this level."""
+        from .geomg import coarse_solve
+        return coarse_solve(pinv, b)
+
+    def project(self, proj, y: torch.Tensor) -> torch.Tensor:
+        return poly_project(proj, y)
+
+    def node_flows(self, V: torch.Tensor, cutoff: float):
+        """(inflow, outflow) of every cell, branch currents under cutoff
+        times the column's largest dropped (stencil_node_currents)."""
+        dirs = _branch_dirs(self, V.dtype)
+        thr = (cutoff * _max_branch(dirs, V))[:, None, None]
+        return _split_flows(dirs, V, thr)
+
 
 def _to_dtype(A: StencilOperator, dtype) -> StencilOperator:
     """Cast of all five planes (contiguous, as the kernels need)."""
-    return StencilOperator(*(p.to(dtype).contiguous() for p in A.planes))
+    return A.to_dtype(dtype)
 
 
 def operator_from_numpy(planes, dtype=torch.float32,
@@ -429,22 +499,9 @@ def stencil_matvec(A: StencilOperator, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def stencil_node_currents(A: StencilOperator, V: torch.Tensor,
-                          cutoff=1e-8, proj=None,
-                          out_dtype=None) -> torch.Tensor:
-    """Node current maps from voltage blocks (B, H, W), on V's device.
-
-    Counterpart of circuitscape_tpu/solve/stencil.py
-    stencil_node_currents: the reference's node current = max(inflow,
-    outflow) with positive/negative branch splitting and the 1e-8*max
-    branch cutoff (src/out.jl:178-290), as shifted-plane arithmetic.
-    The cutoff max is taken per column over the whole grid.  Flow planes
-    are recomputed in the accumulation pass rather than kept from the
-    threshold pass (fewer live blocks); out_dtype=float32 casts V first,
-    as the maps-on path does.  With a projector, a merged node's current
-    is its total in/outflow, broadcast to its cells (poly_sum)."""
-    if out_dtype is not None and V.dtype != out_dtype:
-        V = V.to(out_dtype)
+def _branch_dirs(A: StencilOperator, dtype):
+    """The eight directed branches at each cell of A: (dr, dc, weight
+    plane (1, H, W) in dtype) for the neighbour at offset (dr, dc)."""
     dirs = [(0, 1, A.we),                           # E
             (0, -1, _sh(A.we[None], 0, 1)[0]),      # W
             (1, 0, A.ws),                           # S
@@ -453,15 +510,24 @@ def stencil_node_currents(A: StencilOperator, V: torch.Tensor,
             (-1, -1, _sh(A.wse[None], 1, 1)[0]),    # NW
             (-1, 1, A.wne),                         # NE
             (1, -1, _sh(A.wne[None], -1, 1)[0])]    # SW
-    dirs = [(dr, dc, w.to(V.dtype)[None]) for dr, dc, w in dirs]
+    return [(dr, dc, w.to(dtype)[None]) for dr, dc, w in dirs]
 
-    # branch-current cutoff threshold per column (max |signed branch|)
+
+def _max_branch(dirs, V: torch.Tensor, rows=slice(None)) -> torch.Tensor:
+    """Per column, max |signed branch current| over the cells of `rows`."""
     maxb = torch.zeros(V.shape[0], dtype=V.dtype, device=V.device)
     for dr, dc, w in dirs:
         f = w * (_sh(V, -dr, -dc) - V)
-        maxb = torch.maximum(maxb, torch.amax(torch.abs(f), dim=(-2, -1)))
-    thr = (cutoff * maxb)[:, None, None]
+        maxb = torch.maximum(maxb, torch.amax(torch.abs(f[..., rows, :]),
+                                              dim=(-2, -1)))
+    return maxb
 
+
+def _split_flows(dirs, V: torch.Tensor, thr: torch.Tensor):
+    """(inflow, outflow) of every cell: its branch currents under thr
+    dropped, the rest split by sign and summed.  The flow planes are
+    recomputed rather than kept from the threshold pass (fewer live
+    blocks)."""
     inflow = torch.zeros_like(V)
     outflow = torch.zeros_like(V)
     for dr, dc, w in dirs:
@@ -469,6 +535,32 @@ def stencil_node_currents(A: StencilOperator, V: torch.Tensor,
         f = torch.where(torch.abs(f) < thr, 0.0, f)
         inflow = inflow + torch.clamp_min(f, 0.0)
         outflow = outflow + torch.clamp_min(-f, 0.0)
+    return inflow, outflow
+
+
+def stencil_node_currents(A: StencilOperator, V: torch.Tensor,
+                          cutoff=1e-8, proj=None, out_dtype=None,
+                          fg=None) -> torch.Tensor:
+    """Node current maps from voltage blocks (B, H, W), on V's device.
+
+    Counterpart of circuitscape_tpu/solve/stencil.py
+    stencil_node_currents: the reference's node current = max(inflow,
+    outflow) with positive/negative branch splitting and the 1e-8*max
+    branch cutoff (src/out.jl:178-290), as shifted-plane arithmetic.
+    The cutoff max is taken per column over the whole grid (on a mesh,
+    over every shard before any shard thresholds).  out_dtype=float32
+    casts V first, as the maps-on path does.  fg: an (H, W) field of
+    finite-ground conductances, whose diagonal currents add
+    relu(-fg v) to the inflow and relu(fg v) to the outflow
+    (src/out.jl:193-206).  With a projector, a merged node's current is
+    its total in/outflow, broadcast to its cells (poly_sum)."""
+    if out_dtype is not None and V.dtype != out_dtype:
+        V = V.to(out_dtype)
+    inflow, outflow = A.node_flows(V, cutoff)
+    if fg is not None:
+        fgv = fg[None] * V
+        inflow = inflow + torch.clamp_min(-fgv, 0.0)
+        outflow = outflow + torch.clamp_min(fgv, 0.0)
     if proj is not None:
         # internal polygon edges carry no flow (equal voltages), so the
         # sum of the member cells' flows is the merged node's
@@ -483,12 +575,12 @@ def _apply_op(A: StencilOperator, x: torch.Tensor, pen=None, proj=None):
     solves), projected when a polygon projector is given (x lies in
     range(Pi), so projecting the output keeps the iteration on the
     collapsed system).  A float32 block goes through the matvec kernel,
-    a float64 one (the refinement residuals) through stencil_matvec."""
-    from .cuda_stencil import matvec
-    y = matvec(A, x) if x.dtype == torch.float32 else stencil_matvec(A, x)
+    a float64 one (the refinement residuals) through stencil_matvec
+    (StencilOperator.matvec)."""
+    y = A.matvec(x)
     if pen is not None:
         y = y + pen * x
-    return y if proj is None else poly_project(proj, y)
+    return y if proj is None else A.project(proj, y)
 
 
 def _make_prec_apply(A, prec, prec_apply, pen=None, proj=None):
@@ -522,7 +614,7 @@ def _make_prec_apply(A, prec, prec_apply, pen=None, proj=None):
             return torch.where(pen > 0, r * inv_pen, z)
     if proj is None:
         return base
-    return lambda r: poly_project(proj, base(r))
+    return lambda r: A.project(proj, base(r))
 
 
 def _colsum(a: torch.Tensor) -> torch.Tensor:
@@ -589,9 +681,9 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
     true-residual replacement every 64 iterations (cuda_stencil.matvec).
     Under a penalty field or a projector the body is the composite
     Pi (L + pen) p (the matvec kernel, the penalty term, poly_project)
-    and a column dot, as in the JAX loop."""
-    from .cuda_stencil import matvec_pap
-
+    and a column dot, as in the JAX loop.  (On a mesh, matvec_pap is
+    the sharded matvec and the shard-ordered column sums, as the JAX
+    package's mesh loop is.)"""
     apply_M = _make_prec_apply(A, prec, prec_apply, pen, proj)
     X, R, Z, P, rz, k, best, since, rn2 = state
     ftype = type(best)
@@ -608,7 +700,7 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
     while (k < itmax and k < k_stop and since < 50 and
            _cg_bounded(worst, best) and active):
         if pen is None and proj is None:
-            AP, pAp = matvec_pap(A, P)
+            AP, pAp = A.matvec_pap(P)
         else:
             AP = _apply_op(A, P, pen, proj)
             pAp = _colsum(P * AP)
@@ -730,9 +822,10 @@ def _solve_pairs_fused(S64, A_lo, prec, prec_apply, sc, dc, point_cells,
     """The mixed-precision pair solve: RHS scatter, iterative refinement
     (f32 MG-CG inner passes at INNER_RTOL, f64 true-residual outer loop,
     additional passes only while a column is above rtol), final f64
-    residuals, and focal-voltage extraction.
+    residuals.  On a mesh the RHS block is laid out as S64 (columns over
+    'batch', rows over 'nodes') and X comes back as that MeshBlock.
 
-    Returns (X (f64, (b_pad, H, W)), rel (b_pad,), iters, Vp)."""
+    Returns (X (f64, (b_pad, H, W)), rel (b_pad,), iters)."""
     b_pad = sc.shape[0]
     H, W = S64.shape
     B64 = _pairs_rhs(sc, dc, H, W, b_pad)
@@ -740,6 +833,7 @@ def _solve_pairs_fused(S64, A_lo, prec, prec_apply, sc, dc, point_cells,
         # collapsed-system RHS: Pi b spreads the unit injection over the
         # focal node's polygon
         B64 = poly_project(proj, B64)
+    B64 = S64.layout(B64)
     # padded columns (src == dst) scatter to net-zero RHS already
     bnorm = torch.sqrt(_colsum(B64 * B64))
     safe_bnorm = torch.where(bnorm == 0, 1.0, bnorm)
@@ -768,8 +862,7 @@ def _solve_pairs_fused(S64, A_lo, prec, prec_apply, sc, dc, point_cells,
         iters += st.k
         npass += 1
         stats.record_pass(st.k)
-    Vp, _ = _extract_point_voltages(X, sc, point_cells)
-    return X, rel, iters, Vp
+    return X, rel, iters
 
 
 def stencil_solve_pairs(S64: StencilOperator, src_cells: np.ndarray,
@@ -792,11 +885,15 @@ def _fused_pair_solve(S64, src_cells, dst_cells, point_cells, rtol, itmax,
                       prec, prec_apply, max_refine, proj=None):
     """Fused solve with a chunked-driver fallback for the (rare) case
     the refinement passes don't reach rtol.  A per-column projector is
-    padded with all-trash rows to the padded batch."""
+    padded with all-trash rows to the padded batch, and on a mesh the
+    batch to a multiple of its 'batch' axis (zero columns: rel = 0);
+    X comes back whole on the mesh's first device."""
     H, W = S64.shape
     dev = S64.diag.device
     nb = src_cells.shape[0]
     b_pad = 1 << max(0, nb - 1).bit_length()
+    q = S64.col_groups
+    b_pad = -(-b_pad // q) * q          # even shards over a mesh's 'batch'
     sc_np = np.zeros((b_pad, 2), np.int64)
     dc_np = np.zeros((b_pad, 2), np.int64)
     sc_np[:nb] = src_cells
@@ -813,15 +910,15 @@ def _fused_pair_solve(S64, src_cells, dst_cells, point_cells, rtol, itmax,
     else:
         A_lo = _to_dtype(S64, torch.float32)
 
-    X, rel_d, total_iters, Vp_d = _solve_pairs_fused(
+    X, rel_d, total_iters = _solve_pairs_fused(
         S64, A_lo, prec, prec_apply, sc, dc, pc, rtol, itmax, proj)
     rel = rel_d.cpu().numpy()
-    Vp = Vp_d.cpu().numpy()
 
     if not np.all(rel[:nb] <= rtol) and max_refine > 2:
         B = _pairs_rhs(sc, dc, H, W, b_pad)
         if proj is not None:
             B = poly_project(proj, B)
+        B = S64.layout(B)
         bnorm = torch.sqrt(_colsum(B * B))
         safe_bnorm = torch.where(bnorm == 0, 1.0, bnorm).cpu().numpy()
         R = B - _apply_op(S64, X, None, proj)
@@ -837,7 +934,8 @@ def _fused_pair_solve(S64, src_cells, dst_cells, point_cells, rtol, itmax,
             total_iters += int(it)
             if np.all(rel[:nb] <= rtol):
                 break
-        Vp = _extract_point_voltages(X, sc, pc)[0].cpu().numpy()
+    X = S64.gather(X)
+    Vp = _extract_point_voltages(X, sc, pc)[0].cpu().numpy()
     return X, Vp, rel, total_iters
 
 
@@ -880,9 +978,21 @@ def stencil_solve_advanced_batch(S64: StencilOperator, src_cells, src_vals,
     hierarchy, but each column's operator is the bare Laplacian plus its
     own penalty field.
 
+    On a mesh the batch pads to a multiple of its 'batch' axis (zero
+    columns: rel = 0), and X comes back whole on its first device.
+
     Returns (X (f64, (B, H, W)), rel (np, B), iters)."""
     H, W = S64.shape
     dev = S64.diag.device
+    nb_in = np.asarray(src_cells).shape[0]
+    b_pad = -(-nb_in // S64.col_groups) * S64.col_groups
+    if b_pad > nb_in:
+        def padb(a):
+            a = np.asarray(a)
+            return np.concatenate(
+                [a, np.zeros((b_pad - nb_in,) + a.shape[1:], a.dtype)])
+        src_cells, src_vals = padb(src_cells), padb(src_vals)
+        gnd_cells, gnd_vals = padb(gnd_cells), padb(gnd_vals)
 
     def field(cells, vals):
         return _scatter_field(torch.as_tensor(np.asarray(cells, np.int64),
@@ -895,6 +1005,7 @@ def stencil_solve_advanced_batch(S64: StencilOperator, src_cells, src_vals,
         # collapsed-system RHS (per-cell values already sum to each
         # merged node's total; Pi is applied for arbitrary callers)
         B_rhs = poly_project(proj, B_rhs)
+    B_rhs, pen64 = S64.layout(B_rhs), S64.layout(pen64)
     pen32 = pen64.to(torch.float32)
 
     if A_lo is None:
@@ -925,7 +1036,7 @@ def stencil_solve_advanced_batch(S64: StencilOperator, src_cells, src_vals,
         total_iters += int(it)
         if np.all(rel <= rtol):
             break
-    return X, rel, total_iters
+    return S64.gather(X), rel[:nb_in], total_iters
 
 
 def advanced_ground_penalty(S64: StencilOperator) -> float:

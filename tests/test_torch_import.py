@@ -61,6 +61,14 @@ def test_source_imports_no_jax(path):
                 f"{path}:{node.lineno} imports {n}"
 
 
+@pytest.mark.parametrize("rel", ["utils.py", "warmup.py", "tui.py",
+                                 "parallel/__init__.py", "parallel/mesh.py"])
+def test_source_scan_covers_the_whole_surface(rel):
+    """The JAX-import scan above reaches every module of the port's
+    surface, the mesh package included."""
+    assert os.path.join(PKG, rel) in _port_files()
+
+
 def test_compute_defaults_to_cuda():
     import circuitscape_tpu_torch as cst
     from circuitscape_tpu_torch.run import resolve_device
@@ -69,6 +77,28 @@ def test_compute_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cst.compute({"data_type": "raster"})
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_new_entry_points_default_to_cuda(tmp_path):
+    """compute_omniscape_current and warmup run on CUDA unless given
+    device="cpu", and raise without a card; the mesh spans CUDA devices
+    only."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch.parallel import mesh
+    from circuitscape_tpu_torch.warmup import warmup
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    g = np.ones((3, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cst.compute_omniscape_current(g, g, g, {"data_type": "raster"})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        warmup({"data_type": "raster", "habitat_file": "x"})
+    assert mesh.visible_devices() == []
+    assert mesh.active_mesh(10 ** 8) is None
+    for name in ("compute", "start", "compute_omniscape_current",
+                 "calculate_cum_current_map", "calculate_max_current_map",
+                 "register_solver"):
+        assert name in cst.__all__ and callable(getattr(cst, name))
 
 
 def test_config_round_trip_matches_jax(tmp_path):
