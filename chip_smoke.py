@@ -38,12 +38,15 @@ Phases (any failure exits non-zero; nothing is caught):
   3. drive the main path: the bench.py job (seed 42, 1000 x 1000
      conductance raster with ~10% NODATA, 32 focal points, cg+amg,
      single precision, shortcut mode) through compute(..., "cuda"):
-     one warm run, then two timed runs, each with the launch counters
-     set to 0 just before it; check the resistances (finite, positive
-     off the diagonal, symmetric), the CG iteration count (10) and that
-     every kernel launched; then print each kernel's time per bench job
-     (phase 2's level times weighted by this run's launches per level)
-     beside its byte bound, one per_job line per kernel;
+     one warm run, then two timed runs (time_job, which bench_torch.py
+     times with too), each with the launch counters set to 0 just
+     before it; check the resistances (finite, positive off the
+     diagonal, symmetric), the CG iteration count (10) and that every
+     kernel launched; print bench_torch.py's JSON line of the two runs
+     (with phase 18's default-route verdict as cuda_golden); then print
+     each kernel's time per bench job (phase 2's level times weighted by
+     this run's launches per level) beside its byte bound, one per_job
+     line per kernel;
   4. drive the maps path: the same job with write_cum_cur_map_only and
      write_max_cur_maps (all 496 pairs solved in chunks of 32, two
      1M-cell ASC maps written): one warm run, then one timed run with
@@ -125,7 +128,12 @@ Phases (any failure exits non-zero; nothing is caught):
      and cheb_step launched at 7040^2 and the fused smoother at 3520^2;
      print its CG iterations per refinement pass, batch width,
      host-timer sections, peak device memory, wall time and per_job
-     lines; and (in phase 9) a 256 x 256 job with CS_DEVICE_MG_MAX=1
+     lines; then the same recipe with 32 points (31 anchor columns)
+     under the default chunk budget; in both, the solve's device bytes
+     per cell and column above what is resident when the budget is
+     taken (peak minus resident over cells x padded batch width) within
+     the chunk model (dispatch.COLUMN_BYTES_PER_CELL); and (in phase 9)
+     a 256 x 256 job with CS_DEVICE_MG_MAX=1
      (the host-built route on both devices) and a 128 x 4200 job (fine
      level 128 x 4224) on "cuda" and on "cpu": resistances to 1e-5
      relative and the same CG iteration count;
@@ -155,7 +163,16 @@ Phases (any failure exits non-zero; nothing is caught):
      every shard of that run's hierarchy at the shard's halo-extended
      shape and the run's batch per column group (phase 2's tolerance),
      shard 0's launch timed beside its byte bound;
-  17. print the kernels line, the card line and, last, the result line.
+  17. print the kernels line, the card line and, last, the result line;
+  18. (after phase 14) tpu_golden.py's twelve golden cases through
+     torch_golden.run_subset on the card, on the default route (raster
+     goldens on the general tier, network cg+amg on the host Cholesky)
+     and on the device route (raster pairwise and advanced cg+amg cases
+     on the stencil path, networks on the iterative tier), each held to
+     its golden files at the reference harness's tolerances; with the
+     counters zeroed just before the device route, every kernel
+     launched there; verdicts, CG passes per case and launches per
+     shape printed.
 
 With --cards, on a machine with two cards or more, it runs only the
 build, the bench and advanced jobs on one card, and phase 16 across
@@ -451,19 +468,20 @@ def make_network_advanced_job(d, n=100_000, seed=42):
             "suppress_messages": "True"}, E, w, src, gnd
 
 
-def make_scale_job(d, side=SCALE_SIDE):
+def make_scale_job(d, side=SCALE_SIDE, npoints=4):
     """bench_scale.py's job (the JAX package's 48M-cell single-device
     run): a side x side raster of conductances uniform(0.5, 3.0) from
-    default_rng(7) with ~10% NODATA and 4 focal points placed as
-    bench_scale.py places them, as NPY files in d; cg+amg, single
-    precision, shortcut mode.  Returns (config dict, gmap)."""
+    default_rng(7) with ~10% NODATA and npoints focal points (4 in
+    bench_scale.py) placed as bench_scale.py places them, as NPY files
+    in d; cg+amg, single precision, shortcut mode.  Returns (config
+    dict, gmap)."""
     rng = np.random.default_rng(7)
     g = rng.uniform(0.5, 3.0, (side, side))
     g[rng.random((side, side)) < 0.10] = -9999.0
     np.save(os.path.join(d, "cell.npy"), g)
     pts = np.zeros((side, side))
     placed = 0
-    while placed < 4:
+    while placed < npoints:
         r, c = rng.integers(0, side, 2)
         if g[r, c] > 0 and pts[r, c] == 0:
             placed += 1
@@ -882,31 +900,50 @@ def note_per_job(level_times, launches_at, label=""):
              f"{100 * bound / ms:.1f}% of bound")
 
 
-def phase_main(cfg, rows):
-    """The bench job on the card: warm run, then two timed runs with the
-    launch counters zeroed just before each."""
+def time_job(cfg, runs=2, device="cuda", label="main path", log=note):
+    """`runs` full compute(cfg, device) runs, each with the launch
+    counters set to 0 just before it and the device synchronized before
+    and after it (the timing of bench_torch.py and of phase 3).  Logs
+    each run's wall time.  Returns (the last result, the wall seconds of
+    each run, the last run's launches and launches per shape, its
+    stats.finalize())."""
     import circuitscape_tpu_torch as cst
     from circuitscape_tpu_torch import stats
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
 
-    cst.compute(cfg, device="cuda")
-    best = float("inf")
-    for run in range(2):
-        torch.cuda.synchronize()
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    times = []
+    for run in range(runs):
+        sync()
         cs.reset_launch_counts()
         t = time.perf_counter()
-        r = cst.compute(cfg, device="cuda")
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
+        r = cst.compute(cfg, device=device)
+        sync()
+        times.append(time.perf_counter() - t)
         launches = dict(cs.LAUNCHES)
         launches_at = dict(cs.LAUNCHES_AT)
-        note(f"main path run {run}: {dt:.3f} s, launches {launches}")
-        best = min(best, dt)
+        log(f"{label} run {run}: {times[-1]:.6f} s, launches {launches}")
+    return r, times, launches, launches_at, stats.finalize()
+
+
+def phase_main(cfg, rows, golden):
+    """The bench job on the card: warm run, then two timed runs with the
+    launch counters zeroed just before each (time_job); prints
+    bench_torch.py's JSON line of the two runs, with `golden` (the
+    golden replay's default-route verdict) as its cuda_golden."""
+    import bench_torch
+    import circuitscape_tpu_torch as cst
+
+    cst.compute(cfg, device="cuda")
+    r, times, launches, launches_at, st = time_job(cfg)
+    best = min(times)
     check_resistances(r, "main path")
     check_launched(launches, "main path")
     for name, n in launches.items():
         rows[name]["launches"] = n
-    st = stats.finalize()
     note(f"main path: best of 2 = {best:.3f} s, cg_iters "
          f"{st.get('cg_iters')}, mg_kernels {st.get('mg_kernels')}, "
          f"solve_s {st.get('solve_s'):.3f}, fine_spmv_pct_of_mem_roofline "
@@ -914,6 +951,9 @@ def phase_main(cfg, rows):
     if st.get("cg_iters") != CG_ITERS:
         raise AssertionError(f"main path: {st.get('cg_iters')} CG "
                              f"iterations, expected {CG_ITERS}")
+    line = bench_torch.bench_line(times, st, "cuda")
+    line["cuda_golden"] = golden
+    print(json.dumps(line), flush=True)
     return r, launches_at
 
 
@@ -1197,6 +1237,87 @@ def phase_alltoone(cfg, gmap, level_times):
     note_per_job(level_times, launches_at, " all-to-one job")
 
 
+class chunk_footprint:
+    """While active, measures the device bytes a job's batched stencil
+    solve holds per grid cell and RHS column above what is resident
+    when the job takes its chunk budget (the operator and the
+    hierarchy).  At that call (dispatch.solve_chunk_budget) it records
+    the cells, the allocated bytes and the peak so far, and resets the
+    peak; per_cell_column(width) is then (peak - resident) / (cells x
+    width), the figure the chunk model (dispatch.COLUMN_BYTES_PER_CELL)
+    must cover."""
+
+    def __enter__(self):
+        from circuitscape_tpu_torch.solve import dispatch
+        self.mod, self.real = dispatch, dispatch.solve_chunk_budget
+        self.cells = self.resident = self.setup_peak = None
+
+        def rec(cells, device, *a, **k):
+            torch.cuda.synchronize(device)
+            self.cells = cells
+            self.resident = torch.cuda.memory_allocated(device)
+            self.setup_peak = torch.cuda.max_memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            return self.real(cells, device, *a, **k)
+        dispatch.solve_chunk_budget = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.solve_chunk_budget = self.real
+
+    def peak(self):
+        return max(self.setup_peak, torch.cuda.max_memory_allocated())
+
+    def per_cell_column(self, width):
+        if self.cells is None:
+            raise AssertionError("no chunk budget was taken")
+        return ((torch.cuda.max_memory_allocated() - self.resident) /
+                (self.cells * width))
+
+
+def check_chunk_model(fp, sd, label):
+    """The measured bytes per cell and column of the job's padded batch
+    (stats batch_width rounded up to a power of two, as the pair solve
+    pads it) held to the chunk model."""
+    from circuitscape_tpu_torch.solve.dispatch import COLUMN_BYTES_PER_CELL
+    width = 1 << (int(sd["batch_width"]) - 1).bit_length()
+    per = fp.per_cell_column(width)
+    note(f"{label} chunk model: batch width {sd['batch_width']} (padded "
+         f"{width}), {fp.cells} cells, resident {fp.resident} B at the "
+         f"budget, solve peak {torch.cuda.max_memory_allocated()} B, "
+         f"job peak {fp.peak()} B ({fp.peak() / 2**30:.3f} GiB): "
+         f"{per:.3f} B a cell per column against the model's "
+         f"{COLUMN_BYTES_PER_CELL}")
+    if per > COLUMN_BYTES_PER_CELL:
+        raise AssertionError(f"{label}: {per:.3f} B a cell per column "
+                             f"above the chunk model's "
+                             f"{COLUMN_BYTES_PER_CELL}")
+
+
+def phase_chunk_model(d):
+    """The scale job's recipe with 32 points (31 anchor columns) once
+    under the default chunk budget, where the budget, not the pair
+    count, sets the batch width: resistances finite, symmetric and
+    positive, and the solve's bytes per cell and column within the
+    chunk model."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch import stats
+    cfg, _ = make_scale_job(d, npoints=32)
+    torch.cuda.empty_cache()
+    with chunk_footprint() as fp:
+        t = time.perf_counter()
+        r = cst.compute(cfg, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    sd = stats.finalize()
+    note(f"chunk-model job (6930^2, 32 points): {dt:.3f} s wall, "
+         f"{sd.get('cg_iters')} CG iterations (per refinement pass "
+         f"{sd.get('pass_iters')}), sections {_sections()}")
+    check_resistances(r, "chunk-model job", n=32)
+    check_chunk_model(fp, sd, "chunk-model job")
+    torch.cuda.empty_cache()
+
+
 def phase_scale(cfg, level_times):
     """The scale job (make_scale_job: 6930^2, 48M cells, bucketed to
     7040^2) once through compute(..., "cuda") with the launch counters
@@ -1229,15 +1350,17 @@ def phase_scale(cfg, level_times):
     cs.reset_launch_counts()
     st.stencil_solve_pairs = keep
     try:
-        t = time.perf_counter()
-        r = cst.compute(cfg, device="cuda")
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
+        with chunk_footprint() as fp:
+            t = time.perf_counter()
+            r = cst.compute(cfg, device="cuda")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
     finally:
         st.stencil_solve_pairs = real
     launches, launches_at = dict(cs.LAUNCHES), dict(cs.LAUNCHES_AT)
-    peak = torch.cuda.max_memory_allocated()
+    peak = fp.peak()
     sd = stats.finalize()
+    check_chunk_model(fp, sd, "scale job")
     note(f"scale job: {dt:.3f} s wall, {sd.get('cg_iters')} CG iterations "
          f"(per refinement pass {sd.get('pass_iters')}), batch width "
          f"{sd.get('batch_width')}, {sd.get('cells')} cells, hierarchy "
@@ -2126,6 +2249,41 @@ def phase_omniscape(gmap):
          ", ".join(f"{k} {v:.2e}" for k, v in sorted(kworst.items())) + ")")
 
 
+def phase_golden():
+    """tpu_golden.py's twelve goldens through torch_golden.run_subset on
+    the card, on the default route (raster goldens on the general tier,
+    network cg+amg on the host Cholesky) and on the device route (raster
+    pairwise and advanced cg+amg cases on the stencil path, networks on
+    the iterative tier), each case held to its golden.  Raises on any
+    failure; the device route, with the launch counters zeroed just
+    before it, must launch each of the seven kernels.  Returns the
+    default route's verdict ("passed/total")."""
+    import torch_golden
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    verdicts = []
+    for route in torch_golden.ROUTES:
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        t = time.perf_counter()
+        passed, total, failures = torch_golden.run_subset(note, "cuda", route)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        launches = dict(cs.LAUNCHES)
+        at = ", ".join(f"{k} {H}x{W}: {n}" for (k, H, W), n in
+                       sorted(cs.LAUNCHES_AT.items()))
+        note(f"golden replay, {route} route: {passed}/{total} in {dt:.3f} "
+             f"s, launches {launches}; per shape {at}")
+        if failures:
+            raise AssertionError(f"golden replay, {route} route: "
+                                 f"{failures}")
+        if route == "device":
+            check_launched(launches, "golden replay's device route")
+        verdicts.append(f"{passed}/{total}")
+    note(f"torch_golden: {verdicts[0]} passed (default), {verdicts[1]} "
+         f"(device)")
+    return verdicts[0]
+
+
 def phase_warmup(cfg):
     """warmup() of the bench job on the card, in a process that has run
     no job yet, then the bench job itself."""
@@ -2406,6 +2564,7 @@ def main(argv=()):
     try:
         cfg, gmap = make_job(d, 1000, 1000)
         phase_warmup(cfg)
+        golden = phase_golden()
         pd = tempfile.mkdtemp(dir=d)
         poly_cfg, _, poly = make_polygon_job(pd, 1000, 1000)
         rows, level_times = phase_kernels(gmap, dev, dev_name)
@@ -2422,7 +2581,7 @@ def main(argv=()):
         scale_times = time_scale_levels(scale_gmap, dev, rate, rows)
         check_past_2_31(scale_gmap, dev, rows)
         del scale_gmap
-        r, launches_at = phase_main(cfg, rows)
+        r, launches_at = phase_main(cfg, rows, golden)
         note_per_job(level_times, launches_at)
         phase_maps(cfg, gmap, r)
         phase_polygons(poly_cfg, r, level_times)
@@ -2432,6 +2591,7 @@ def main(argv=()):
         phase_onetoall(cfg, r, level_times)
         phase_alltoone(cfg, gmap, level_times)
         phase_scale(scale_cfg, scale_times)
+        phase_chunk_model(tempfile.mkdtemp(dir=d))
         phase_network(tempfile.mkdtemp(dir=d), rate, dev_name)
         phase_network_advanced(tempfile.mkdtemp(dir=d))
         phase_agree(tempfile.mkdtemp(dir=d))

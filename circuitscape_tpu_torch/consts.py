@@ -14,8 +14,10 @@ DOUBLE = ("double", "Double")
 
 # Solver spellings (src/consts.jl:11-14).  The tiers keep the historical
 # names so existing .ini files run unchanged:
-#   cg+amg  -> batched stencil PCG + geometric multigrid on the GPU
-#   cholmod -> direct sparse Cholesky (not carried by this package yet)
+#   cg+amg  -> batched stencil PCG + geometric multigrid on the GPU (the
+#              stencil path), or, off it, ELL PCG with the SA-AMG V-cycle
+#              on the job's device (solve/cg.py, solve/amg.py)
+#   cholmod -> the native sparse Cholesky on the host (solve/native_chol.py)
 AMG = ("cg+amg", "amg+cg")
 CHOLMOD = ("cholmod", "cholesky", "cholfact")
 PARDISO = ("mklpardiso", "MKLPardiso", "PARDISO", "pardiso")

@@ -368,8 +368,8 @@ def _stencil_shortcut_solve(prob, flags, resistances, voltmatrix,
     pairwise matrix with the voltage-ratio shortcut
     (src/core.jl:137-146,685-739 semantics).
     """
-    from ..solve.dispatch import (SolverFailedError, pow2_floor,
-                                  reraise_if_device_oom,
+    from ..solve.dispatch import (COLUMN_BYTES_PER_CELL, SolverFailedError,
+                                  pow2_floor, reraise_if_device_oom,
                                   solve_chunk_budget)
     from ..solve.prepare import prepare_stencil_solver_from_gmap
     from ..solve.stencil import (_extract_point_voltages,
@@ -423,10 +423,10 @@ def _stencil_shortcut_solve(prob, flags, resistances, voltmatrix,
 
     if pair_cols:
         nb = len(pair_cols)
-        # memory cap: ~8 live f64 (B, H, W) blocks per column under the
+        # memory cap: COLUMN_BYTES_PER_CELL a cell per column under the
         # device's free memory, floored to a power of two because the
         # fused solve pads its batch UP to one
-        per_col = H * W * 8 * 8
+        per_col = H * W * COLUMN_BYTES_PER_CELL
         budget = solve_chunk_budget(H * W, S64.diag.device,
                                     mesh=getattr(S64, "mesh", None))
         step = max(1, min(_shortcut_chunk_cap, budget // max(per_col, 1)))
@@ -566,8 +566,8 @@ def _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
     accumulates cum/max in chunk order, then marks the chunk's pairs
     done, so a checkpoint never holds a chunk's maps without its pairs.
     """
-    from ..solve.dispatch import (SolverFailedError, pow2_floor,
-                                  reraise_if_device_oom,
+    from ..solve.dispatch import (COLUMN_BYTES_PER_CELL, SolverFailedError,
+                                  pow2_floor, reraise_if_device_oom,
                                   solve_chunk_budget)
     from ..solve.prepare import prepare_stencil_solver_from_gmap
     from ..solve.stencil import stencil_node_currents, stencil_solve_pairs
@@ -615,7 +615,7 @@ def _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
     # per column the chunk also holds the normalised voltages and the
     # float32 node currents besides the solve's own blocks; chunks cap
     # at 32 so that one chunk's output overlaps the next one's solve
-    per_col = H * W * 8 * 9
+    per_col = H * W * (COLUMN_BYTES_PER_CELL + 8)
     # CS_MAPS_CHUNK_BYTES overrides the maps path's budget; it falls
     # back to CS_SHORTCUT_CHUNK_BYTES, then to the device's free memory
     budget = solve_chunk_budget(

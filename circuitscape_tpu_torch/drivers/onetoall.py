@@ -66,8 +66,9 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
     included pairs, repeated point ids or points merged into one node,
     solvers other than cg+amg, grids below CS_ONETOALL_DEVICE_MIN
     cells."""
-    from ..solve.dispatch import (SolverFailedError, pow2_floor,
-                                  reraise_if_device_oom, solve_chunk_budget)
+    from ..solve.dispatch import (COLUMN_BYTES_PER_CELL, SolverFailedError,
+                                  pow2_floor, reraise_if_device_oom,
+                                  solve_chunk_budget)
     from ..solve.prepare import (prepare_stencil_solver_from_gmap,
                                  prepare_stencil_solver_from_gmap_pen)
     from ..solve.stencil import (_to_dtype, advanced_ground_penalty,
@@ -175,9 +176,9 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
         lab[rr_, cc2] = node_lab[nodemap[rr_, cc2]]
         labels_dev = torch.as_tensor(lab, device=dev)
 
-    # byte-budgeted column chunks, ~8 live f64 (B, H, W) blocks a column;
+    # byte-budgeted column chunks, COLUMN_BYTES_PER_CELL a cell a column;
     # the max_parallel cap, then the power-of-two floor, in that order
-    per_col = Hp * Wp * 8 * 8
+    per_col = Hp * Wp * COLUMN_BYTES_PER_CELL
     budget = solve_chunk_budget(Hp * Wp, dev,
                                 env_var="CS_ONETOALL_CHUNK_BYTES",
                                 mesh=getattr(S64, "mesh", None))

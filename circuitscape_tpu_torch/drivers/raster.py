@@ -179,7 +179,7 @@ def _regions_device_path(rasterdata, flags, cfg, dtype, pts, exclude_set,
     component.  Returns True when it solved the job, False for grids
     below CS_PAIRWISE_DEVICE_MIN cells and solvers other than cg+amg,
     which take the per-pair loop."""
-    from ..solve.dispatch import SolverFailedError
+    from ..solve.dispatch import COLUMN_BYTES_PER_CELL, SolverFailedError
     from ..solve.prepare import prepare_stencil_solver_from_gmap
     from ..solve.stencil import (build_poly_projector_rows,
                                  stencil_node_currents, stencil_solve_pairs)
@@ -212,8 +212,8 @@ def _regions_device_path(rasterdata, flags, cfg, dtype, pts, exclude_set,
         labels_grid[:H, :W] = labels
         labels_dev = torch.as_tensor(labels_grid, device=dev)
 
-    # the JAX package's flat 4 GiB of f64 solve blocks per chunk
-    per_col = Hp * Wp * 8 * 8
+    # the JAX package's flat 4 GiB of solve blocks per chunk
+    per_col = Hp * Wp * COLUMN_BYTES_PER_CELL
     step = max(1, min(2048, (4 << 30) // max(per_col, 1)))
     for s0 in range(0, len(jobs), step):
         chunk = jobs[s0:s0 + step]

@@ -57,6 +57,9 @@ def _run(cfg: CSConfig, device: torch.device):
                    "Switching precision to double.")
         dtype = np.float64
     cslog.info("Precision used: %s", cfg.precision)
+    if cfg.parallelize:
+        cslog.info("Solves are batched on the accelerator "
+                   "(parallelize flag accepted for compatibility)")
     CSTIMER.reset()
     stats.reset()
     with CSTIMER("complete job"):

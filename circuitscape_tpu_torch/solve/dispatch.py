@@ -38,6 +38,16 @@ class SolverFailedError(RuntimeError):
     pass
 
 
+# Device bytes a column of a batched stencil solve holds per grid cell:
+# the chunk model of the shortcut, focal-region and one-to-all chunks
+# (the maps path adds one float64 plane) and the out-of-memory
+# message's figure.  Set from the card: the 48M-cell pair solve held
+# 97.06 B a cell per column above its operator and hierarchy at widths
+# 8 and 16 (chip_smoke.phase_chunk_model), 13 float64 planes cover it.
+# (The JAX package's model is 8 planes, 64 B.)
+COLUMN_BYTES_PER_CELL = 104
+
+
 def _free_bytes(device: torch.device) -> int:
     """Bytes a solve may still allocate on device: the CUDA driver's
     free memory plus what torch's caching allocator holds unused."""
@@ -84,7 +94,7 @@ def reraise_if_device_oom(e: Exception, cells: int, batch: int):
     error; re-raise anything else unchanged."""
     if not isinstance(e, torch.cuda.OutOfMemoryError):
         raise e
-    col_gb = cells * 64 / 2**30
+    col_gb = cells * COLUMN_BYTES_PER_CELL / 2**30
     raise SolverFailedError(
         f"device out of memory: the {cells}-cell grid needs "
         f"~{col_gb:.2f} GB per concurrent RHS column (batch={batch}) on "

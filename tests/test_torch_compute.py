@@ -289,3 +289,77 @@ def test_compute_reads_ini_and_asc(tmp_path):
     rt = cst.compute(str(tmp_path / "t.ini"), device="cpu")
     rj = cs.compute(str(tmp_path / "j.ini"))
     np.testing.assert_allclose(rt, rj, rtol=1e-6)
+
+
+def _info_lines(pkg, cfg):
+    """The INFO messages a job logs through pkg.cslog's UI callback,
+    without their timestamps."""
+    lines = []
+    pkg.cslog.ui_interface[0] = (lambda msg, level: lines.append(
+        msg.split(" : ", 1)[1]) if level == "info" else None)
+    try:
+        if pkg is cst:
+            pkg.compute(cfg, device="cpu")
+        else:
+            pkg.compute(cfg)
+    finally:
+        pkg.cslog.ui_interface[0] = lambda msg, level: None
+    return lines
+
+
+def test_parallelize_log_matches_jax(tmp_path):
+    """An INI with parallelize = True logs the same INFO lines in both
+    packages, the JAX package's note that the flag is accepted for
+    compatibility among them."""
+    cfg = _bench_job(str(tmp_path), 20, 20, 3)
+    cfg.update(parallelize="True", max_parallel="2")
+    lt = _info_lines(cst, dict(cfg, output_file=str(tmp_path / "j.out")))
+    lj = _info_lines(cs, dict(cfg, output_file=str(tmp_path / "j.out")))
+    assert lt == lj
+    assert any("parallelize flag accepted" in m for m in lt)
+
+
+@pytest.mark.parametrize("per_cell,widths", [
+    (64, [4, 4]), (96, [2, 2, 2, 2]), (300, [1] * 8)])
+def test_chunk_width_follows_column_bytes(tmp_path, monkeypatch, per_cell,
+                                          widths):
+    """Under CS_SHORTCUT_CHUNK_BYTES the shortcut path's batch width is
+    the budget over dispatch.COLUMN_BYTES_PER_CELL bytes a cell, floored
+    to a power of two, whatever value the constant holds: a budget of
+    4 x 64 B a cell cuts 9 points' 8 anchor columns into 4 + 4 at 64 B,
+    2 + 2 + 2 + 2 at 96 B and singles at 300 B."""
+    from circuitscape_tpu_torch import stats
+    from circuitscape_tpu_torch.solve import dispatch, stencil
+    cfg = _bench_job(str(tmp_path), 40, 36, 9)
+    cfg["output_file"] = str(tmp_path / "t.out")
+    cells = []
+    budget = dispatch.solve_chunk_budget
+    monkeypatch.setattr(dispatch, "solve_chunk_budget", lambda c, *a, **k:
+                        cells.append(c) or budget(c, *a, **k))
+    cst.compute(cfg, device="cpu")
+    monkeypatch.setenv("CS_SHORTCUT_CHUNK_BYTES", str(4 * cells[0] * 64))
+    monkeypatch.setattr(dispatch, "COLUMN_BYTES_PER_CELL", per_cell)
+    seen = []
+    solve = stencil.stencil_solve_pairs
+    monkeypatch.setattr(stencil, "stencil_solve_pairs", lambda *a, **k:
+                        seen.append(len(a[1])) or solve(*a, **k))
+    r = cst.compute(cfg, device="cpu")
+    assert seen == widths
+    assert stats.finalize()["batch_width"] == widths[0]
+    assert np.all(np.isfinite(r[1:, 1:]))
+
+
+@pytest.mark.parametrize("per_cell", [64, 88, 128])
+def test_oom_message_quotes_column_bytes(monkeypatch, per_cell):
+    """The out-of-memory error names the chunk model's bytes per column
+    (dispatch.COLUMN_BYTES_PER_CELL a cell) and the knob that cuts the
+    batch."""
+    from circuitscape_tpu_torch.solve import dispatch
+    monkeypatch.setattr(dispatch, "COLUMN_BYTES_PER_CELL", per_cell)
+    cells = 49_561_600
+    with pytest.raises(dispatch.SolverFailedError) as e:
+        dispatch.reraise_if_device_oom(
+            torch.cuda.OutOfMemoryError("out of memory"), cells, 16)
+    m = str(e.value)
+    assert f"~{cells * per_cell / 2**30:.2f} GB per concurrent" in m
+    assert "batch=16" in m and "CS_SHORTCUT_CHUNK_BYTES" in m

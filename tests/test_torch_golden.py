@@ -12,7 +12,6 @@ One-to-all, all-to-one and network goldens:
 tests/test_torch_golden_o2a.py, test_torch_network.py.
 """
 
-import glob
 import os
 
 import numpy as np
@@ -20,8 +19,9 @@ import pytest
 import torch
 
 import circuitscape_tpu_torch as cst
-from golden_utils import (DATA_DIR, _shift_network_name, check_resistances,
-                          read_aagrid, readdlm)
+from golden_utils import DATA_DIR, check_resistances, readdlm
+# golden_utils.compare_all_output's rules on a directory of our own
+from torch_golden import compare_outputs
 
 torch.set_num_threads(1)
 
@@ -39,37 +39,6 @@ def run_golden(tmp_path, monkeypatch, ini, solver):
     cfg.update(solver=solver, suppress_messages="True",
                output_file=str(tmp_path / f"{stem}.out"))
     return stem, cst.compute(cfg, device="cpu")
-
-
-def compare_outputs(outdir, stem, is_single=False):
-    """golden_utils.compare_all_output on outdir: grids by sum of
-    squares, network node/branch text by sorted rows with the goldens'
-    0-based ids shifted.  Returns the number of files compared."""
-    tol = 1e-4 if is_single else 1e-6
-    n = 0
-    for path in sorted(glob.glob(os.path.join(str(outdir), f"{stem}_*"))):
-        f = os.path.basename(path)
-        if "resistances" in f:
-            continue
-        if f.endswith("asc"):
-            gold = os.path.join(VERIFY, f)
-            assert os.path.exists(gold), f"no golden for generated {f}"
-            d2 = float(((read_aagrid(path) - read_aagrid(gold)) ** 2).sum())
-            assert d2 < tol, f"{f}: grid sum-sq diff {d2}"
-            n += 1
-        elif "Network" in f and f.endswith(".txt"):
-            mine = readdlm(path)
-            gold = readdlm(os.path.join(VERIFY, f if f.startswith("mg")
-                                        else _shift_network_name(f))).copy()
-            shift = 2 if "branch" in f else 1
-            gold[:, :shift] += 1
-            a = mine[np.lexsort(mine.T[::-1])]
-            b = gold[np.lexsort(gold.T[::-1])]
-            assert a.shape == b.shape, f"{f}: {a.shape} vs {b.shape}"
-            d2 = float(((a - b) ** 2).sum())
-            assert d2 < tol, f"{f}: sum-sq diff {d2}"
-            n += 1
-    return n
 
 
 @pytest.mark.parametrize("solver", SOLVERS)

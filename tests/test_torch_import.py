@@ -1,5 +1,7 @@
 """circuitscape_tpu_torch stands alone: importing it loads no JAX, no
-module of it (or chip_smoke.py) imports JAX or circuitscape_tpu, and
+module of it (or chip_smoke.py, profile_torch.py, torch_golden.py,
+bench_torch.py) imports JAX, circuitscape_tpu or tests/golden_utils.py
+(which imports circuitscape_tpu), and
 its entry points run on CUDA unless the caller asks for the CPU.  Also
 the host-side modules copied from the JAX package, against it."""
 
@@ -17,8 +19,9 @@ PKG = os.path.join(ROOT, "circuitscape_tpu_torch")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "profile_torch.py")]
+    files = [os.path.join(ROOT, n) for n in (
+        "chip_smoke.py", "profile_torch.py", "torch_golden.py",
+        "bench_torch.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -42,11 +45,27 @@ def test_import_leaves_jax_out():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_golden_replay_leaves_jax_out():
+    """torch_golden.py's whole replay (on the CPU here, on the card on a
+    machine without JAX) loads neither jax nor circuitscape_tpu."""
+    code = (
+        "import sys, torch_golden\n"
+        "rc = torch_golden.main(['--device', 'cpu'])\n"
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'circuitscape_tpu' or "
+        "m.startswith('circuitscape_tpu.') or m == 'golden_utils']\n"
+        "print('LOADED', bad, rc)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED [] 0" in out.stdout, out.stdout
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_source_imports_no_jax(path):
-    """(g) no port file imports jax or circuitscape_tpu (other than
-    circuitscape_tpu_torch), at any depth of the file."""
+    """(g) no port file imports jax, circuitscape_tpu (other than
+    circuitscape_tpu_torch) or golden_utils, at any depth of the file."""
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -57,7 +76,8 @@ def test_source_imports_no_jax(path):
             continue
         for n in names:
             top = n.split(".")[0]
-            assert top not in ("jax", "jaxlib", "circuitscape_tpu"), \
+            assert top not in ("jax", "jaxlib", "circuitscape_tpu",
+                               "golden_utils"), \
                 f"{path}:{node.lineno} imports {n}"
 
 

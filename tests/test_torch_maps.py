@@ -233,12 +233,16 @@ def test_maps_resume_matches_jax(tmp_path, monkeypatch):
 
 def test_maps_chunk_bytes_sets_batch_width(tmp_path, monkeypatch):
     """CS_MAPS_CHUNK_BYTES sets the maps path's chunk budget, as in the
-    JAX package: two columns' worth of bytes (9 float64 blocks each)
-    gives chunks of 2 pairs in both packages, and the same answers."""
+    JAX package: two of the port's columns' worth of bytes
+    (COLUMN_BYTES_PER_CELL + 8 a cell each; the JAX package's 72-B
+    model floors the same budget to 2 as well) gives chunks of 2 pairs
+    in both packages, and the same answers."""
     from circuitscape_tpu.solve import stencil as jstencil
     from circuitscape_tpu_torch.solve import stencil
+    from circuitscape_tpu_torch.solve.dispatch import COLUMN_BYTES_PER_CELL
     monkeypatch.setenv("CS_PAIRWISE_DEVICE_MIN", "1")
-    monkeypatch.setenv("CS_MAPS_CHUNK_BYTES", str(2 * 40 * 36 * 8 * 9))
+    monkeypatch.setenv("CS_MAPS_CHUNK_BYTES",
+                       str(2 * 40 * 36 * (COLUMN_BYTES_PER_CELL + 8)))
     cfg = _bench_job(str(tmp_path), 40, 36, 4)
     cfg.update(write_cum_cur_map_only="True")
     widths = {"t": [], "j": []}

@@ -176,15 +176,18 @@ def _record_chunks(monkeypatch):
 @pytest.mark.parametrize("scenario,knob", [("one-to-all", "chunk_bytes"),
                                           ("all-to-one", "max_parallel")])
 def test_chunks_match_jax(tmp_path, monkeypatch, scenario, knob):
-    """A byte budget of ~2 columns (CS_ONETOALL_CHUNK_BYTES) cuts the 6
-    points into chunks of 2, 2, 2 in both packages; max_parallel = 5
-    floors to chunks of 4, 2 (the power-of-two floor after the cap)."""
+    """A byte budget of 2 of the port's columns (CS_ONETOALL_CHUNK_BYTES;
+    COLUMN_BYTES_PER_CELL a cell, which the JAX package's 64-B model
+    floors to 2 as well) cuts the 6 points into chunks of 2, 2, 2 in
+    both packages; max_parallel = 5 floors to chunks of 4, 2 (the
+    power-of-two floor after the cap)."""
+    from circuitscape_tpu_torch.solve.dispatch import COLUMN_BYTES_PER_CELL
     monkeypatch.setenv("CS_ONETOALL_DEVICE_MIN", "1")
     cfg = _job(tmp_path, scenario)
     cfg["suppress_messages"] = "True"
     if knob == "chunk_bytes":
         monkeypatch.setenv("CS_ONETOALL_CHUNK_BYTES",
-                           str(128 * 128 * 8 * 8 * 2))
+                           str(128 * 128 * COLUMN_BYTES_PER_CELL * 2))
     else:
         cfg["max_parallel"] = "5"
     widths = _record_chunks(monkeypatch)
