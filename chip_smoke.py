@@ -187,6 +187,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -514,15 +515,60 @@ def check_resistances(r, label, n=32, merged=False):
 
 
 def phase_build():
+    """Build and load the kernels' library; beside the build, nvcc
+    compiles each source once more to a cubin with `-Xptxas -v`, and
+    each kernel's registers, shared memory and spills are printed as
+    ptxas reports them (`registers ...` lines)."""
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
     nvcc = cs._nvcc()
     note(subprocess.run([nvcc, "--version"], capture_output=True,
                         text=True, check=True).stdout.strip())
     t = time.perf_counter()
-    lib = cs.build()
-    cs._load()
+    os.makedirs(cs.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cs.BUILD_DIR) as tmp:
+        flags = [f for f in cs.NVCC_FLAGS if f != "-shared"]
+        ptxas = [subprocess.Popen(
+            [nvcc, *flags, "-cubin", "-Xptxas", "-v", "-o",
+             os.path.join(tmp, src.stem + ".cubin"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in sorted(cs.CSRC.glob("*.cu"))]
+        try:
+            lib = cs.build()
+            cs._load()
+        finally:
+            reports = [(p.communicate()[0], p.returncode) for p in ptxas]
     note(f"built {os.path.relpath(lib, HERE)} in "
          f"{time.perf_counter() - t:.1f} s")
+    for out, rc in reports:
+        if rc != 0:
+            raise AssertionError(f"nvcc -Xptxas -v failed:\n{out}")
+        for line in ptxas_kernels(out):
+            note(line)
+
+
+def ptxas_kernels(out):
+    """`registers <kernel>: ...` lines from ptxas's -v report: each
+    entry function's registers, shared memory and spill bytes."""
+    lines, name, spill = [], None, ""
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?",
+                          m.group(1))
+            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                    if k else m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f", spills {m.group(1)} / {m.group(2)} bytes"
+            continue
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and name:
+            lines.append(f"registers {name}: {m.group(1)} registers, "
+                         f"{m.group(2)} bytes smem{spill}")
+            name, spill = None, ""
+    return lines
 
 
 def _crop_operator(gmap, H, W, dev):

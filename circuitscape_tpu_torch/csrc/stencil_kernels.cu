@@ -26,37 +26,28 @@
 // B columns (or over a chunk of them) with the weights it needs held in
 // registers.
 //
-// residual_init: a thread owns one cell of a 32 x 8 tile, loads its nine
-// weights and the nine offsets of its x reads into registers once, and
-// loops over all B columns; x's neighbour reads hit L1, where the
-// neighbouring threads of the tile have brought them.  Neighbours outside
-// the grid get weight 0 and an offset clamped into the grid, so the column
-// loop has no branches.  The column loop stays rolled: on the H100,
-// unrolling it raised the register count and lost more to occupancy than it
-// gained in loads in flight.
-//
-// The six others (whose first design, one thread per cell or cell pair
-// through L1, reached under half of the byte bound at 1024^2 or per job, or
-// walked all B columns in one thread on the coarse levels where the main
-// path launches them) stage their inputs instead: for each column, the
-// block copies the tile of the block the stencil reads with a one-cell halo
-// (x; b for cheb_init, r0 for cheb_finish, d for cheb_step), and the tile of
-// any other input block (residual_restrict: b; cheb_finish: x1; cheb_step:
-// r and x), into shared memory with cp.async, into a ring of NSTAGE
-// buffers, so the copies of the next two columns are in flight while this
-// column's stencils are computed from shared memory.  Cells outside the
-// grid are zero-filled by the copy, so they read as zero without clamped
-// offsets, and every width takes the same 4-byte copies (no 16-byte
-// alignment needed, unlike TMA).  Each thread owns several cells (matvec,
-// matvec_pap, cheb_step, cheb_init, cheb_finish: a vertical strip of 4 in
-// one fine column, of 1 for matvec and cheb_step on levels too small to
-// fill the card with strips of 4; residual_restrict: one 2 x 2 fine patch)
-// and holds their weights in registers, loaded while the first copies fly.
-// A block owns one tile and a chunk of the B columns
-// (blockIdx.x), chosen per launch so the grid fills at least two waves of
-// the card: small levels spread the columns over blocks rather than walk them
-// in sequence.  The chunk index varies fastest, so the blocks of one tile run
-// together and share its weights in L2.
+// The seven stage their inputs: for each column, the block copies the tile
+// of the block the stencil reads with a one-cell halo (x; b for cheb_init,
+// r0 for cheb_finish, d for cheb_step), and the tile of any other input
+// block (residual_restrict, residual_init: b; cheb_finish: x1; cheb_step: r
+// and x), into shared memory with cp.async, into a ring of NSTAGE buffers,
+// so the copies of the next two columns are in flight while this column's
+// stencils are computed from shared memory.  (Their first design, one
+// thread per cell or cell pair reading through L1 and walking all B
+// columns, reached under half of the byte bound at 1024^2 or per job, or
+// launched too few blocks to fill the card on the coarse levels where the
+// main path runs them.)  Cells outside the grid are zero-filled by the
+// copy, so they read as zero without clamped offsets, and every width takes
+// the same 4-byte copies (no 16-byte alignment needed, unlike TMA).  Each
+// thread owns several cells (residual_restrict: one 2 x 2 fine patch; the
+// others: a vertical strip of 4 in one fine column, of 1 on the levels too
+// small for strips of 4 to fill the card) and holds their weights in
+// registers, loaded while the first copies fly.  A block owns one tile and
+// a chunk of the B columns (blockIdx.x), chosen per launch so the grid
+// fills the card (two waves of resident blocks; residual_init: 2 * sms
+// blocks, at most one wave): small levels spread the columns over blocks
+// rather than walk them in sequence.  The chunk index varies fastest, so
+// the blocks of one tile run together and share its weights in L2.
 //
 // Each entry point launches on the given stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError().
@@ -67,10 +58,8 @@
 
 namespace {
 
-constexpr int TX = 32;            // tile columns: one warp along a row
-constexpr int TY = 8;             // tile rows
-constexpr int NT = TX * TY;       // threads per block
-constexpr int NWARP = NT / 32;
+constexpr int NWARP = 8;
+constexpr int NT = 32 * NWARP;    // threads per block
 
 struct Planes {
     const float* we;
@@ -80,65 +69,22 @@ struct Planes {
     const float* diag;
 };
 
-// The nine terms of (L x)[i, j], in the plain version's order: centre, E, W,
-// S, N, SE, NW, NE, SW.  w: the weight (0 where the neighbour is outside the
-// grid), read from its base plane at the edge's source cell; off: the
-// neighbour's offset within one (H, W) plane.
-struct Stencil9 {
-    float w[9];
-    int off[9];
-};
-
 __device__ __forceinline__ float ld(const float* __restrict__ p, int i, int j,
                                     int H, int W) {
     return (i >= 0 && i < H && j >= 0 && j < W)
                ? __ldg(p + (size_t)i * W + j) : 0.0f;
 }
 
-__device__ __forceinline__ Stencil9 load_stencil(const Planes& P, int i,
-                                                 int j, int H, int W) {
-    constexpr int di[9] = {0, 0, 0, 1, -1, 1, -1, -1, 1};
-    constexpr int dj[9] = {0, 1, -1, 0, 0, 1, -1, 1, -1};
-    Stencil9 k;
-    k.w[0] = ld(P.diag, i, j, H, W);
-    k.w[1] = ld(P.we, i, j, H, W);
-    k.w[2] = ld(P.we, i, j - 1, H, W);
-    k.w[3] = ld(P.ws, i, j, H, W);
-    k.w[4] = ld(P.ws, i - 1, j, H, W);
-    k.w[5] = ld(P.wse, i, j, H, W);
-    k.w[6] = ld(P.wse, i - 1, j - 1, H, W);
-    k.w[7] = ld(P.wne, i, j, H, W);
-    k.w[8] = ld(P.wne, i + 1, j - 1, H, W);
-#pragma unroll
-    for (int q = 0; q < 9; ++q) {
-        const int ni = i + di[q];
-        const int nj = j + dj[q];
-        const bool ok = ni >= 0 && ni < H && nj >= 0 && nj < W;
-        if (!ok) k.w[q] = 0.0f;
-        k.off[q] = ok ? ni * W + nj : i * W + j;
-    }
-    return k;
-}
-
-// (L x)[i, j] for one column x (H, W).
-__device__ __forceinline__ float lap(const Stencil9& k,
-                                     const float* __restrict__ x) {
-    float y = k.w[0] * __ldg(x + k.off[0]);
-#pragma unroll
-    for (int q = 1; q < 9; ++q) y -= k.w[q] * __ldg(x + k.off[q]);
-    return y;
-}
-
 // --- staged kernels: each column's tiles in shared memory ----------------
 
 constexpr int NSTAGE = 3;         // ring buffers: two columns in flight
 
-// The nine weights of cell (i, j) in Stencil9's order, 0 where the weight's
-// source cell is outside the grid, and all 0 for a cell outside the grid
-// (odd sides: its residual is 0, as zero padding makes it).  Not built on
-// load_stencil: its neighbour masks and offsets, which the staged kernels
-// do not need, made residual_restrict ~3 us slower a launch at 128^2 and
-// matvec_pap ~6% slower at 1024^2 on the H100.
+// The nine weights of cell (i, j) in the plain version's order of the terms
+// of (L x)[i, j] (centre, E, W, S, N, SE, NW, NE, SW), each read from its
+// base plane at the edge's source cell: 0 where that cell is outside the
+// grid, and all 0 for a cell outside the grid (odd sides: its residual is
+// 0, as zero padding makes it).  A neighbour outside the grid reads as 0
+// from the staged window.
 __device__ __forceinline__ void load_weights(const Planes& P, int i, int j,
                                              int H, int W, float (&w)[9]) {
     const bool in = i < H && j < W;
@@ -153,7 +99,8 @@ __device__ __forceinline__ void load_weights(const Planes& P, int i, int j,
     w[8] = in ? ld(P.wne, i + 1, j - 1, H, W) : 0.0f;
 }
 
-// (L x) at the centre of a 3 x 3 window n[row][col] of x, in lap()'s order.
+// (L x) at the centre of a 3 x 3 window n[row][col] of x, in the plain
+// version's order.
 __device__ __forceinline__ float lap3x3(const float (&w)[9], float n00,
                                         float n01, float n02, float n10,
                                         float n11, float n12, float n20,
@@ -237,12 +184,13 @@ __device__ __forceinline__ void ring_walk(Stage* ring, int nb, Fill fill,
     }
 }
 
-// The strip kernels (matvec, matvec_pap, cheb_step, cheb_init,
-// cheb_finish): a 32-column x NWARP*R-row tile; thread (tx, ty) owns the
-// strip of R cells (rows ty*R ...) of fine column tx.  R is ST_R, except
-// for matvec's and cheb_step's launches on levels too coarse to fill the
-// card (short_strips): there R = 1.  A staged window over the tile with a
-// one-cell halo has NWARP*R + 2 rows of ST_COLS.
+// The strip kernels (all but residual_restrict): a 32-column x
+// NWARP*R-row tile; thread (tx, ty) owns the strip of R cells (rows
+// ty*R ...) of fine column tx.  R is ST_R, except for the launches of
+// matvec and cheb_step on levels too coarse to fill the card
+// (short_strips), and of residual_init on levels whose strips of ST_R
+// would fill under half a wave: there R = 1.  A staged window over the
+// tile with a one-cell halo has NWARP*R + 2 rows of ST_COLS.
 constexpr int ST_R = 4;
 constexpr int ST_TX = 32;
 constexpr int ST_TY = NWARP * ST_R;
@@ -277,11 +225,11 @@ __device__ __forceinline__ float lap_strip(const float (&w)[9],
 // bytes (x in, y out, five planes).  x is staged through the ring; each
 // thread slides down its strip reading three x values per row from shared
 // memory (each x value about 3 times per strip of 4, not 9) and keeps the
-// strip's weights in registers, summed in lap()'s order.  With DOT it
-// keeps its x . y in one register and the block reduces once per column, in
-// a fixed order (warp shuffles, then the warps' sums in warp order), so p.Ap
-// repeats to the bit; no atomics.  Columns go in groups of 32, one extra
-// barrier per group.
+// strip's weights in registers, summed in the plain version's order.  With
+// DOT it keeps its x . y in one register and the block reduces once per
+// column, in a fixed order (warp shuffles, then the warps' sums in warp
+// order), so p.Ap repeats to the bit; no atomics.  Columns go in groups of
+// 32, one extra barrier per group.
 template <bool DOT, int R>
 __device__ __forceinline__ void matvec_strip(
         const Planes& P, const float* __restrict__ x, float* __restrict__ y,
@@ -540,27 +488,73 @@ cheb_init_kernel(Planes P, const float* __restrict__ dinv,
 
 // Replaces _res_init_kernel / pallas_residual_init (pallas_stencil.py:573,
 // 631).  Pass 1 of the warm smoother: r0 = b - L x;  x1 = x + c dinv r0.
+// Bound by bytes (b and x in, r0 and x1 out, five planes and dinv).
+// cheb_step's design: x, which the stencil reads, is staged through the
+// ring with a one-cell halo and b's tile in the same stage; x1 takes x at
+// the cell from the window's centre, so x is read from device memory once.
+// The base weights and dinv at the strip's own cells are loaded into
+// registers while the first copies fly.  Its first design (a thread per
+// cell of a 32 x 8 tile walking all B columns, neighbours through L1)
+// reached 65% of the byte bound at 1024^2 and ~37% on the bench job's
+// 512^2-64^2 levels, where it launched 16-1024 blocks on the H100's 132
+// SMs.
+template <int R>
+struct RIStage {
+    static constexpr int TY = NWARP * R;
+    float x[(TY + 2) * ST_COLS];
+    float b[TY * ST_TX];
+};
+
+template <int R>
 __global__ void __launch_bounds__(NT)
 residual_init_kernel(Planes P, const float* __restrict__ dinv,
                      const float* __restrict__ bvec,
                      const float* __restrict__ x, float* __restrict__ r_out,
-                     float* __restrict__ x1_out, float c, int B, int H,
-                     int W) {
-    const int j = blockIdx.x * TX + threadIdx.x;
-    const int i = blockIdx.y * TY + threadIdx.y;
-    if (i >= H || j >= W) return;
-    const Stencil9 k = load_stencil(P, i, j, H, W);
+                     float* __restrict__ x1_out, float c, int B, int chunk,
+                     int H, int W) {
+    using Stage = RIStage<R>;
+    constexpr int TY = Stage::TY;
+    __shared__ __align__(16) Stage ring[NSTAGE];
+    const int tx = threadIdx.x & 31;
+    const int ty = threadIdx.x >> 5;
+    const int j = blockIdx.y * ST_TX + tx;
+    const int i0 = blockIdx.z * TY + ty * R;
+    const int b0 = blockIdx.x * chunk;
+    const int nb = min(chunk, B - b0);
+    const int gi0 = (int)blockIdx.z * TY;
+    const int gj0 = (int)blockIdx.y * ST_TX;
+    const Window<TY + 2, ST_COLS> xwin(gi0 - 1, gj0 - 1, H, W);
+    const Window<TY, ST_TX> bwin(gi0, gj0, H, W);
     const size_t plane = (size_t)H * W;
-    const int at = i * W + j;
-    const float dv = __ldg(dinv + at);
-#pragma unroll 1
-    for (int b = 0; b < B; ++b) {
-        const size_t o = b * plane + at;
-        const float* xb = x + b * plane;
-        const float r = __ldg(bvec + o) - lap(k, xb);
-        r_out[o] = r;
-        x1_out[o] = __ldg(xb + at) + c * (dv * r);
+    const auto fill = [&](Stage& st, int k) {
+        const size_t o = (b0 + k) * plane;
+        xwin.stage(st.x, x + o);
+        bwin.stage(st.b, bvec + o);
+    };
+    ring_start(ring, nb, fill);
+    const bool col_in = j < W;
+    float w[R][9], dv[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+        load_weights(P, i0 + q, j, H, W, w[q]);
+        dv[q] = col_in && i0 + q < H ? __ldg(dinv + (size_t)(i0 + q) * W + j)
+                                     : 0.0f;
     }
+    ring_walk(ring, nb, fill, [&](int k, const Stage& st) {
+        float n[R + 2][3];
+        read_strip(st.x, tx, ty, n);
+        const int t = ty * R * ST_TX + tx;
+        const size_t o = (b0 + k) * plane + (size_t)i0 * W + j;
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+            const float rv = st.b[t + q * ST_TX] - lap_strip(w[q], n, q);
+            if (col_in && i0 + q < H) {
+                const size_t at = o + (size_t)q * W;
+                r_out[at] = rv;
+                x1_out[at] = n[q + 1][1] + c * (dv[q] * rv);
+            }
+        }
+    });
 }
 
 // Replaces _cheb_fin_kernel / pallas_cheb_finish (pallas_stencil.py:595,
@@ -694,10 +688,6 @@ cheb_step_kernel(Planes P, const float* __restrict__ dinv,
     });
 }
 
-inline dim3 tiles(int rows, int cols) {
-    return dim3((cols + TX - 1) / TX, (rows + TY - 1) / TY);
-}
-
 inline int launch_error(int B, int H, int W) {
     // the wrappers never send an empty launch; refuse one rather than
     // launching a zero-sized grid.  Offsets within one (H, W) plane are
@@ -721,25 +711,37 @@ inline int card_sms() {
     return sms;
 }
 
-// Grid of a staged kernel over tiles_x x tiles_y tiles: x is the chunk of
-// columns, fastest, so that the chunks of one tile run side by side.  Each
-// chunk holds cb columns (cb is returned): the most that still gives the
-// card (sms SMs, queried unless the launch has done so already) two waves of
-// resident blocks, so the weights are read as few times as the card's
-// occupancy allows.  A failed query leaves its error for the caller's
-// cudaGetLastError().
+// Blocks of kernel resident on one SM (at least 1).  A failed query leaves
+// its error for the caller's cudaGetLastError().
 template <class Kernel>
-dim3 chunked_grid(Kernel kernel, int tiles_x, int tiles_y, int B, int* cb,
-                  int sms = card_sms()) {
+int resident(Kernel kernel) {
     int per_sm = 1;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, 0);
-    const long want = 2L * sms * (per_sm > 0 ? per_sm : 1);
-    const long tiles = (long)tiles_x * tiles_y;
-    long chunks = (want + tiles - 1) / tiles;
+    return per_sm > 0 ? per_sm : 1;
+}
+
+// Grid of a staged kernel over tiles_x x tiles_y tiles with the B columns
+// in `chunks` chunks (at least 1, at most B) of cb columns (cb is
+// returned): x is the chunk, fastest, so that the chunks of one tile run
+// side by side.
+inline dim3 column_chunks(int tiles_x, int tiles_y, int B, long chunks,
+                          int* cb) {
     if (chunks > B) chunks = B;
     if (chunks < 1) chunks = 1;
     *cb = (B + (int)chunks - 1) / (int)chunks;
     return dim3((B + *cb - 1) / *cb, tiles_x, tiles_y);
+}
+
+// The grid of the six kernels other than residual_init: chunks of the most
+// columns that still give the card (sms SMs, queried unless the launch has
+// done so already) two waves of resident blocks, so the weights are read as
+// few times as the card's occupancy allows.
+template <class Kernel>
+dim3 chunked_grid(Kernel kernel, int tiles_x, int tiles_y, int B, int* cb,
+                  int sms = card_sms()) {
+    const long want = 2L * sms * resident(kernel);
+    const long tiles = (long)tiles_x * tiles_y;
+    return column_chunks(tiles_x, tiles_y, B, (want + tiles - 1) / tiles, cb);
 }
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -774,6 +776,34 @@ int launch_cheb_step(const Planes& P, const float* dinv, const float* r,
                                    ceil_div(H, NWARP * R), B, &chunk, sms);
     cheb_step_kernel<R><<<grid, NT, 0, stream>>>(
         P, dinv, r, d, x, r_out, d_out, x_out, ca, cb, B, chunk, H, W);
+    return (int)cudaGetLastError();
+}
+
+// residual_init's launch, chosen on the H100 over the level shapes of the
+// bench, scale and Omniscape jobs at B = 1 ... 32 (compare_residual_init.py):
+// fewer, longer-lived blocks than chunked_grid's two waves, which made it
+// up to 1.6x slower than its first design at 384^2 - 512^2 and B = 4: a
+// block with one or two columns has no column for its ring to overlap
+// with its first copies and weight loads.  Strips of ST_R where their
+// tiles fill at least half a wave of resident blocks (cs_residual_init),
+// else of one cell; the columns in the fewest chunks that give the grid
+// 2 * sms blocks, but never more blocks than the card holds at once
+// (per_sm blocks of residual_init_kernel<R> an SM).
+template <int R>
+int launch_residual_init(const Planes& P, const float* dinv, const float* b,
+                         const float* x, float* r_out, float* x1_out,
+                         float c, int B, int H, int W, int sms, int per_sm,
+                         cudaStream_t stream) {
+    const int tiles_x = ceil_div(W, ST_TX);
+    const int tiles_y = ceil_div(H, NWARP * R);
+    const long tiles = (long)tiles_x * tiles_y;
+    const long fit = (long)sms * per_sm / tiles;
+    const long want = (2L * sms + tiles - 1) / tiles;
+    int chunk = B;
+    const dim3 grid = column_chunks(tiles_x, tiles_y, B,
+                                    want < fit ? want : fit, &chunk);
+    residual_init_kernel<R><<<grid, NT, 0, stream>>>(
+        P, dinv, b, x, r_out, x1_out, c, B, chunk, H, W);
     return (int)cudaGetLastError();
 }
 
@@ -869,10 +899,16 @@ int cs_residual_init(const float* we, const float* ws, const float* wse,
     const int bad = launch_error(B, H, W);
     if (bad >= 0) return bad;
     const Planes P{we, ws, wse, wne, diag};
-    residual_init_kernel<<<tiles(H, W), dim3(TX, TY), 0,
-                           (cudaStream_t)stream>>>(P, dinv, b, x, r_out,
-                                                   x1_out, c, B, H, W);
-    return (int)cudaGetLastError();
+    const cudaStream_t s = (cudaStream_t)stream;
+    const int sms = card_sms();
+    const long tiles = (long)ceil_div(W, ST_TX) * ceil_div(H, ST_TY);
+    const int per_sm = resident(residual_init_kernel<ST_R>);
+    return 2 * tiles < (long)sms * per_sm
+               ? launch_residual_init<1>(P, dinv, b, x, r_out, x1_out, c, B,
+                                         H, W, sms,
+                                         resident(residual_init_kernel<1>), s)
+               : launch_residual_init<ST_R>(P, dinv, b, x, r_out, x1_out, c,
+                                            B, H, W, sms, per_sm, s);
 }
 
 int cs_cheb_finish(const float* we, const float* ws, const float* wse,

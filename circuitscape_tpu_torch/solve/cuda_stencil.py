@@ -33,27 +33,29 @@ offsets: 5 instead of 9 plane bytes per cell.  For L Dinv the TPU reads
 nine premultiplied planes plus Dinv; these kernels form
 w * Dinv[neighbour] in registers, once per cell: 6 plane reads, not 10.
 
-residual_init gives a thread one cell and reads x's neighbours through
-L1, where the adjacent threads of the tile have already brought them.
-The other six, which reached under half of their byte bound that way (at
-1024^2, or over a bench job's levels), stage each column's tile of the
-block the stencil reads with a one-cell halo (x; b for cheb_init, r0
-for cheb_finish, d for cheb_step), and the tile of any other input
-(residual_restrict: b; cheb_finish: x1; cheb_step: r and x), in shared
+All seven stage each column's tile of the block the stencil reads with
+a one-cell halo (x; b for cheb_init, r0 for cheb_finish, d for
+cheb_step), and the tile of any other input (residual_restrict and
+residual_init: b; cheb_finish: x1; cheb_step: r and x), in shared
 memory through a three-buffer cp.async ring (the next two columns'
 copies in flight while one is computed; the copy zero-fills cells
-outside the grid, and takes any width and alignment) and give a thread
-several cells: matvec, matvec_pap, cheb_step and the two smoother
-kernels a vertical strip of four in one column (matvec and cheb_step:
-one cell where strips of four would leave SMs idle; each staged value read
-~3 times per strip from shared memory, not 9 through L1; matvec_pap
-reduces once per column per block rather than per cell, the smoother
-kernels hold the strip's 36 Dinv-premultiplied weights in registers),
-and residual_restrict one 2x2 fine patch (its four residuals summed in
-registers, one coalesced store of its coarse cell).
+outside the grid, and takes any width and alignment).  Their first
+design, a thread per cell reading through L1, reached under half of
+the byte bound (at 1024^2, or over a bench job's levels).  A thread
+owns several cells: residual_restrict one 2x2 fine patch (its four
+residuals summed in registers, one coalesced store of its coarse cell),
+the six others a vertical strip of four in one column (matvec, cheb_step
+and residual_init: one cell where strips of four would leave SMs idle,
+for residual_init under half a wave of resident blocks;
+each staged value read ~3 times per strip from shared memory, not 9
+through L1; matvec_pap reduces once per column per block rather than per
+cell, the smoother kernels hold the strip's 36 Dinv-premultiplied
+weights in registers, residual_init takes x1's x from the staged
+window's centre).
 Their blocks each take a chunk of the batch, sized per launch so the
-grid fills two waves of the card: on the coarse levels the batch is
-spread over blocks instead of walked 32 deep by each thread.
+grid fills the card (two waves of resident blocks; residual_init 2 x
+SMs blocks, at most one wave): on the coarse levels the batch is spread
+over blocks instead of walked 32 deep by each thread.
 
 Each wrapper takes CPU tensors to its plain-torch version (the tests run
 there) and CUDA tensors to its kernel; on a CUDA tensor it launches the

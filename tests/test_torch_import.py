@@ -1,6 +1,6 @@
 """circuitscape_tpu_torch stands alone: importing it loads no JAX, no
 module of it (or chip_smoke.py, profile_torch.py, torch_golden.py,
-bench_torch.py) imports JAX, circuitscape_tpu or tests/golden_utils.py
+bench_torch.py, compare_residual_init.py) imports JAX, circuitscape_tpu or tests/golden_utils.py
 (which imports circuitscape_tpu), and
 its entry points run on CUDA unless the caller asks for the CPU.  Also
 the host-side modules copied from the JAX package, against it."""
@@ -21,7 +21,7 @@ PKG = os.path.join(ROOT, "circuitscape_tpu_torch")
 def _port_files():
     files = [os.path.join(ROOT, n) for n in (
         "chip_smoke.py", "profile_torch.py", "torch_golden.py",
-        "bench_torch.py")]
+        "bench_torch.py", "compare_residual_init.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)

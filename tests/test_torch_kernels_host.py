@@ -313,18 +313,17 @@ def test_kernel_matches_plain_on_host(lib, name, shape):
     _close(*_run(lib, name, A, dinv, x, b, d))
 
 
-@pytest.mark.parametrize("card", [(1, 1), (132, 3)])
-@pytest.mark.parametrize("name", ["matvec", "matvec_pap", "cheb_step",
-                                  "residual_restrict", "cheb_init",
-                                  "cheb_finish"])
+@pytest.mark.parametrize("card", [(1, 1), (132, 3), (4, 2)])
+@pytest.mark.parametrize("name", KERNELS)
 @pytest.mark.parametrize("B", [1, 5, 40])
 def test_staged_kernel_column_chunks_on_host(lib, name, B, card):
     """The staged kernels with all B columns in one chunk per tile (a card
     of one multiprocessor that holds one block) and with the columns
-    spread over blocks (132 multiprocessors of 3 blocks), on a grid of a
-    few tiles with odd sides: every column walks the ring, and 40
-    columns in one block make matvec_pap's partial sums go in two
-    groups."""
+    spread over blocks (132 multiprocessors of 3 blocks; 4 of 2, where
+    residual_init takes strips of 4 in two chunks, the last one short
+    at B = 5), on a grid of a few tiles with odd sides: every column
+    walks the ring, and 40 columns in one block make matvec_pap's
+    partial sums go in two groups."""
     lib.emu_set_card(*card)
     A, dinv, (x, b, d) = _inputs(B, 33, 35, seed=B)
     _close(*_run(lib, name, A, dinv, x, b, d))
@@ -373,3 +372,27 @@ def test_residual_restrict_misaligned_b_on_host(lib):
     got, _ = _run(lib, "residual_restrict", A, dinv, x,
                   buf[1:].view(b.shape), d)
     _close(got, (cs.residual_restrict_plain(A, b, x),))
+
+
+def test_ptxas_report_names_each_kernel():
+    """chip_smoke.py's `registers` lines from an `nvcc -Xptxas -v` report:
+    each entry function by its kernel name (with its strip height where
+    it is a template), its registers, shared memory and spills."""
+    from chip_smoke import ptxas_kernels
+    fn = ("_ZN12_GLOBAL__N_120residual_init_kernelILi4EEEvNS_6PlanesEPKfS3_"
+          "S3_PfS4_fiiii")
+    out = f"""ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{fn}' for 'sm_90a'
+ptxas info    : Function properties for {fn}
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 26160 bytes smem, 452 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117matvec_pap_kernelENS_6PlanesEPKfPfS3_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117matvec_pap_kernelENS_6PlanesEPKfPfS3_iiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 76 registers, used 1 barriers, 14000 bytes smem, 400 bytes cmem[0]
+"""
+    assert ptxas_kernels(out) == [
+        "registers residual_init_kernel<4>: 80 registers, 26160 bytes smem, "
+        "spills 8 / 4 bytes",
+        "registers matvec_pap_kernel: 76 registers, 14000 bytes smem, "
+        "spills 0 / 0 bytes"]
