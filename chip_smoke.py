@@ -163,7 +163,24 @@ Phases (any failure exits non-zero; nothing is caught):
      every shard of that run's hierarchy at the shard's halo-extended
      shape and the run's batch per column group (phase 2's tolerance),
      shard 0's launch timed beside its byte bound;
-  17. print the kernels line, the card line and, last, the result line;
+  17. print the total time, the kernels line, the card line and, last,
+     the result line;
+  19. (after phase 13) bench_suite_torch.py's rows no other phase runs,
+     its recipes drawn from its default_rng(42) in its order: the
+     2450 x 2450 and 3465 x 3465 pairwise jobs (6M and 12M cells, 32
+     points, shortcut mode; 2560^2 and 3584^2 padded) once each with the
+     counters zeroed just before it: resistances finite, symmetric,
+     positive, the host-built hierarchy (stats mg_build), every kernel
+     launched; CG iterations per pass, batch width, peak device memory,
+     timer sections and wall printed; then every kernel held against its
+     plain version (phase 2's tolerance) at each shape that run launched
+     it at, at the run's padded batch width on the job's own map, timed
+     beside its byte bound, and per_job lines; the suite's 1000 x 1000
+     raster with solver = cholmod in double precision (the host
+     Cholesky) and with cg+amg in single: resistances within 1e-4
+     relative (the reference's single-precision tolerance), sections
+     printed; the suite's SpMV record (matvec at 1000^2, B = 32, beside
+     its byte bound);
   18. (after phase 14) tpu_golden.py's twelve golden cases through
      torch_golden.run_subset on the card, on the default route (raster
      goldens on the general tier, network cg+amg on the host Cholesky)
@@ -820,31 +837,40 @@ def time_scale_levels(gmap, dev, rate, rows):
     of its hierarchy where its pair solve launches it (7040^2: the
     TPU's column-tiled _kernel / _cheb_kernel width; 3520^2 down to
     110^2: the fused smoother), on the operator of the scale job's own
-    conductance map: held against its plain version (check_kernel; the
-    error joins its row of the kernels line), timed (least of three runs
-    of 20 launches) beside its byte bound; at the two finest levels the
-    plain version timed too, and matvec beside the library sparse
-    product wherever it launches.  Returns {name: {(H, W): (ms, bound
-    ms)}}."""
+    conductance map (time_shapes; the plain version timed too at the two
+    finest levels).  Returns {name: {(H, W): (ms, bound ms)}}."""
     shapes = hierarchy_shapes(*SCALE_HW)
-    per_kernel = dict(pair_solve_kernels(shapes))
+    return time_shapes(gmap, dict(pair_solve_kernels(shapes)), SCALE_B,
+                       dev, rate, rows, "scale level", plain_at=shapes[:2])
+
+
+def time_shapes(gmap, per_kernel, B, dev, rate, rows, tag, plain_at=()):
+    """Each kernel at batch B on each of its shapes in per_kernel ({name:
+    shapes}), on _crop_operator's operator of gmap there: held against
+    its plain version (check_kernel; the error joins its row of the
+    kernels line), timed (least of three runs of 20 launches) beside its
+    byte bound; at the shapes of plain_at the plain version timed too,
+    and matvec beside the library sparse product wherever it launches.
+    Returns {name: {(H, W): (ms, bound ms)}}."""
+    shapes = sorted({hw for hws in per_kernel.values() for hw in hws},
+                    reverse=True)
     times = {name: {} for name in per_kernel}
     for H, W in shapes:
         A, dinv = _crop_operator(gmap, H, W, dev)
-        blocks = _card_blocks(SCALE_B, H, W, dev, seed=H)
+        blocks = _card_blocks(B, H, W, dev, seed=H)
         for name, levels in per_kernel.items():
             if (H, W) not in levels:
                 continue
             kern, plain = _pairs(name, A, dinv, blocks)
-            label = f"scale level B={SCALE_B} {H}x{W}"
+            label = f"{tag} B={B} {H}x{W}"
             rows[name]["max_abs_err"] = max(
                 rows[name]["max_abs_err"],
                 check_kernel(name, kern, plain, label))
             ms = min(cuda_ms(kern, n=20) for _ in range(3))
-            bound = kernel_bytes(name, SCALE_B, H, W) / rate * 1e3
+            bound = kernel_bytes(name, B, H, W) / rate * 1e3
             times[name][(H, W)] = (ms, bound)
             extra = ""
-            if (H, W) in shapes[:2]:
+            if (H, W) in plain_at:
                 extra += f", plain {cuda_ms(plain, n=3, warm=1):.4f} ms"
             if name == "matvec":
                 call = _library_matvec(A, blocks[0])
@@ -946,11 +972,14 @@ def note_per_job(level_times, launches_at, label=""):
              f"{100 * bound / ms:.1f}% of bound")
 
 
-def time_job(cfg, runs=2, device="cuda", label="main path", log=note):
+def time_job(cfg, runs=2, device="cuda", label="main path", log=note,
+             after=None):
     """`runs` full compute(cfg, device) runs, each with the launch
     counters set to 0 just before it and the device synchronized before
-    and after it (the timing of bench_torch.py and of phase 3).  Logs
-    each run's wall time.  Returns (the last result, the wall seconds of
+    and after it (the timing of bench_torch.py, bench_suite_torch.py and
+    phase 3).  Logs each run's wall time and, untimed, passes each run's
+    result to `after` where one is given (bench_suite_torch.py reads each
+    run's stats there).  Returns (the last result, the wall seconds of
     each run, the last run's launches and launches per shape, its
     stats.finalize())."""
     import circuitscape_tpu_torch as cst
@@ -972,6 +1001,8 @@ def time_job(cfg, runs=2, device="cuda", label="main path", log=note):
         launches = dict(cs.LAUNCHES)
         launches_at = dict(cs.LAUNCHES_AT)
         log(f"{label} run {run}: {times[-1]:.6f} s, launches {launches}")
+        if after is not None:
+            after(r)
     return r, times, launches, launches_at, stats.finalize()
 
 
@@ -1454,6 +1485,104 @@ def phase_scale(cfg, level_times):
     torch.cuda.empty_cache()
     return {"s": dt, "iters": sd.get("cg_iters"), "peak": peak,
             "residual": worst}
+
+
+SUITE_SIDES = (2450, 3465)   # bench_suite.py's 6M- and 12M-cell rasters
+
+
+def phase_suite(d, rate, rows):
+    """19. bench_suite_torch.py's rows that no other phase runs: its
+    recipes drawn from its default_rng(42) in its order (the 1000^2
+    raster first, then 2450^2 and 3465^2), each of the two large
+    pairwise jobs once (suite_pairwise), the 1000^2 raster on the direct
+    tier against the iterative one (direct_vs_iterative), and the SpMV
+    record's line.  Returns each part's summary (by side, "direct",
+    "spmv")."""
+    import bench_suite_torch as bst
+    rng = np.random.default_rng(42)
+    d1 = tempfile.mkdtemp(dir=d)
+    cfg1 = bst.shortcut_job(d1, rng, 1000)
+    out = {}
+    for side in SUITE_SIDES:
+        dd = tempfile.mkdtemp(dir=d)
+        out[side] = suite_pairwise(bst.shortcut_job(dd, rng, side), side,
+                                   rate, rows)
+        shutil.rmtree(dd)
+    out["direct"] = direct_vs_iterative(cfg1)
+    shutil.rmtree(d1)
+    spmv = bst.spmv_record("cuda")
+    note(f"spmv record {json.dumps(spmv)}")
+    out["spmv"] = spmv
+    return out
+
+
+def suite_pairwise(cfg, side, rate, rows):
+    """One suite pairwise job (32 points, shortcut mode) on the card, the
+    launch counters zeroed just before it (time_job): resistances
+    finite, symmetric, positive; the large-grid route (stats mg_build
+    "host"); every kernel launched.  Prints the CG iterations per pass,
+    the batch width, peak device memory, the timer sections and the
+    wall; then holds every kernel against its plain version at each
+    (name, H, W) the run launched it at, at the run's padded batch width
+    on the job's own conductance map, timed beside its bound
+    (time_shapes), and prints per_job lines of the run's launches."""
+    label = f"suite pairwise {side}^2"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r, (dt,), launches, launches_at, sd = time_job(cfg, 1, "cuda", label)
+    peak = torch.cuda.max_memory_allocated()
+    note(f"{label}: {dt:.3f} s wall, {sd.get('cg_iters')} CG iterations "
+         f"(per refinement pass {sd.get('pass_iters')}), batch width "
+         f"{sd.get('batch_width')}, {sd.get('cells')} cells, hierarchy "
+         f"built on the {sd.get('mg_build')}, mg_kernels "
+         f"{sd.get('mg_kernels')}, peak device memory {peak} B "
+         f"({peak / 2**30:.3f} GiB), solve_s {sd.get('solve_s'):.3f}")
+    note(f"{label} sections {_sections()}")
+    check_resistances(r, label)
+    if sd.get("mg_build") != "host":
+        raise AssertionError(f"{label}: hierarchy built on the "
+                             f"{sd.get('mg_build')}, not the host")
+    check_launched(launches, label)
+    note(f"{label} launches per shape " + ", ".join(
+        f"{k} {H}x{W}: {n}" for (k, H, W), n in sorted(launches_at.items())))
+    per_kernel = {}
+    for (name, H, W) in launches_at:
+        per_kernel.setdefault(name, set()).add((H, W))
+    B = 1 << (int(sd["batch_width"]) - 1).bit_length()
+    gmap = np.maximum(np.load(cfg["habitat_file"]), 0.0)
+    times = time_shapes(gmap, per_kernel, B, torch.device("cuda"), rate,
+                        rows, f"{label} level")
+    del gmap
+    note_per_job(times, launches_at, f" suite {side}^2")
+    return {"s": dt, "iters": sd.get("pass_iters"), "peak": peak,
+            "batch": sd.get("batch_width")}
+
+
+def direct_vs_iterative(cfg):
+    """The suite's 1000^2 raster (32 points) once with solver = cholmod in
+    double precision (the native Cholesky on the host) and once with
+    cg+amg in single precision (the stencil path on the card): the
+    resistances agree within 1e-4 relative off the diagonal (the
+    reference's single-precision tolerance, test/test_utils.jl:167).
+    Prints the worst error and each run's timer sections."""
+    res = {}
+    for solver, precision in (("cholmod", "double"), ("cg+amg", "single")):
+        c = dict(cfg, solver=solver, precision=precision)
+        r, (dt,), _, _, _ = time_job(c, 1, "cuda", f"1M raster, {solver}")
+        check_resistances(r, f"1M raster, {solver}")
+        note(f"1M raster, {solver} {precision}: {dt:.3f} s, sections "
+             f"{_sections()}")
+        res[solver] = (r[1:, 1:], dt)
+    off = ~np.eye(32, dtype=bool)
+    a, b = res["cg+amg"][0], res["cholmod"][0]
+    worst = float(np.max(np.abs(a - b)[off] / np.abs(b)[off]))
+    note(f"1M raster: cg+amg (single) within {worst:.3e} relative of "
+         f"cholmod (double)")
+    if not worst <= 1e-4:
+        raise AssertionError(f"1M raster: cg+amg and cholmod differ by "
+                             f"{worst} relative")
+    return {"worst": worst, "cholmod_s": res["cholmod"][1],
+            "cgamg_s": res["cg+amg"][1]}
 
 
 def phase_poly_project(gmap, poly, dev, rate):
@@ -2603,6 +2732,7 @@ def main(argv=()):
                   file=sys.stderr)
             return 2
         return main_cards(dev, dev_name)
+    t_start = time.perf_counter()
     phase_build()
     scratch = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(scratch, exist_ok=True)
@@ -2638,6 +2768,9 @@ def main(argv=()):
         phase_alltoone(cfg, gmap, level_times)
         phase_scale(scale_cfg, scale_times)
         phase_chunk_model(tempfile.mkdtemp(dir=d))
+        t = time.perf_counter()
+        phase_suite(tempfile.mkdtemp(dir=d), rate, rows)
+        note(f"suite rows (phase 19): {time.perf_counter() - t:.1f} s")
         phase_network(tempfile.mkdtemp(dir=d), rate, dev_name)
         phase_network_advanced(tempfile.mkdtemp(dir=d))
         phase_agree(tempfile.mkdtemp(dir=d))
@@ -2645,6 +2778,7 @@ def main(argv=()):
         phase_mesh(tempfile.mkdtemp(dir=d), cfg, gmap, r, adv_cfg, v_adv)
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    note(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     card = card_line()
     note(card)
     print(json.dumps({"kernels": [rows[k] for k, _, _ in KERNELS]}))

@@ -204,7 +204,8 @@ def test_bench_torch_line_on_cpu():
     assert isinstance(line["cg_iters"], int) and line["cg_iters"] > 0
 
 
-@pytest.mark.parametrize("script", ["torch_golden.py", "bench_torch.py"])
+@pytest.mark.parametrize("script", ["torch_golden.py", "bench_torch.py",
+                                    "bench_suite_torch.py"])
 def test_scripts_need_a_card(script):
     """Without a CUDA device and without --device cpu: exit 2, nothing on
     stdout, no fallback to the CPU."""

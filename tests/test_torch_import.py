@@ -1,7 +1,8 @@
 """circuitscape_tpu_torch stands alone: importing it loads no JAX, no
 module of it (or chip_smoke.py, profile_torch.py, torch_golden.py,
-bench_torch.py, compare_residual_init.py) imports JAX, circuitscape_tpu or tests/golden_utils.py
-(which imports circuitscape_tpu), and
+bench_torch.py, bench_suite_torch.py, compare_residual_init.py) imports
+JAX, circuitscape_tpu, bench_suite.py or tests/golden_utils.py (which
+imports circuitscape_tpu), and
 its entry points run on CUDA unless the caller asks for the CPU.  Also
 the host-side modules copied from the JAX package, against it."""
 
@@ -21,7 +22,8 @@ PKG = os.path.join(ROOT, "circuitscape_tpu_torch")
 def _port_files():
     files = [os.path.join(ROOT, n) for n in (
         "chip_smoke.py", "profile_torch.py", "torch_golden.py",
-        "bench_torch.py", "compare_residual_init.py")]
+        "bench_torch.py", "bench_suite_torch.py",
+        "compare_residual_init.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -65,7 +67,8 @@ def test_golden_replay_leaves_jax_out():
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_source_imports_no_jax(path):
     """(g) no port file imports jax, circuitscape_tpu (other than
-    circuitscape_tpu_torch) or golden_utils, at any depth of the file."""
+    circuitscape_tpu_torch), bench_suite or golden_utils, at any depth of
+    the file."""
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -77,7 +80,7 @@ def test_source_imports_no_jax(path):
         for n in names:
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "circuitscape_tpu",
-                               "golden_utils"), \
+                               "bench_suite", "golden_utils"), \
                 f"{path}:{node.lineno} imports {n}"
 
 
