@@ -191,11 +191,27 @@ Phases (any failure exits non-zero; nothing is caught):
      launched there; verdicts, CG passes per case and launches per
      shape printed.
 
+  20. (--cards only) bench_capacity_torch.py's row b: its 14336 x 14336
+     job (205.5M cells, bench_capacity.py's recipe, 4 points, shortcut
+     mode) on a mesh of every card (CS_FORCE_MESH=1, the default shape,
+     the streamed build) and on one card (CS_DISABLE_MESH=1, chunked,
+     the host-built hierarchy), with that script's checks: resistances
+     finite, symmetric, positive, 6 pairs solved, each anchor column's
+     float64 relative residual (computed a shard at a time on the mesh)
+     under 1e-6, the build and mesh shape expected, the two runs within
+     1e-4 relative; every kernel each run launched held against its
+     plain version on every shard of its hierarchy at the shard's
+     halo-extended shape (phase 2's tolerance), shard 0's launch timed
+     beside its byte bound; launches per shape, per-card fixed bytes
+     and peaks printed.
+
 With --cards, on a machine with two cards or more, it runs only the
 build, the bench and advanced jobs on one card, and phase 16 across
 every card in place of the virtual shards (n cards: shapes (n,1) and
 the squarest (r,n/r)), each check held against the one-card runs;
-then the result line.
+then phase 20 and the result line.  `--cards --capacity-out PATH`
+also writes phase 20's two records there, as bench_capacity_torch.py
+writes its rows'.
 
 Exits 2 without printing a result when no CUDA device is available.
 """
@@ -975,20 +991,20 @@ def note_per_job(level_times, launches_at, label=""):
 def time_job(cfg, runs=2, device="cuda", label="main path", log=note,
              after=None):
     """`runs` full compute(cfg, device) runs, each with the launch
-    counters set to 0 just before it and the device synchronized before
-    and after it (the timing of bench_torch.py, bench_suite_torch.py and
-    phase 3).  Logs each run's wall time and, untimed, passes each run's
-    result to `after` where one is given (bench_suite_torch.py reads each
-    run's stats there).  Returns (the last result, the wall seconds of
-    each run, the last run's launches and launches per shape, its
-    stats.finalize())."""
+    counters set to 0 just before it and every card synchronized before
+    and after it (a mesh job runs on several; the timing of
+    bench_torch.py, bench_suite_torch.py and phase 3).  Logs each run's
+    wall time and, untimed, passes each run's result to `after` where
+    one is given (bench_suite_torch.py reads each run's stats there).
+    Returns (the last result, the wall seconds of each run, the last
+    run's launches and launches per shape, its stats.finalize())."""
     import circuitscape_tpu_torch as cst
     from circuitscape_tpu_torch import stats
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
 
     def sync():
         if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
+            _sync(cards())
 
     times = []
     for run in range(runs):
@@ -1318,38 +1334,72 @@ class chunk_footprint:
     """While active, measures the device bytes a job's batched stencil
     solve holds per grid cell and RHS column above what is resident
     when the job takes its chunk budget (the operator and the
-    hierarchy).  At that call (dispatch.solve_chunk_budget) it records
-    the cells, the allocated bytes and the peak so far, and resets the
-    peak; per_cell_column(width) is then (peak - resident) / (cells x
-    width), the figure the chunk model (dispatch.COLUMN_BYTES_PER_CELL)
-    must cover."""
+    hierarchy), on every card the job runs on (a mesh's devices, or its
+    one device).  At that call (dispatch.solve_chunk_budget) it records
+    the cells, each card's allocated bytes, free bytes and peak so far,
+    and resets the peaks; hold() folds each card's peak so far into the
+    solve's and resets it, so a check run inside the job (residuals64)
+    leaves the solve's figures alone.  per_card_column(width) is each
+    card's (solve peak - resident) over its share of cells x width
+    columns, the figure the chunk model (dispatch.COLUMN_BYTES_PER_CELL)
+    must cover; per_cell_column(width) the largest."""
 
     def __enter__(self):
         from circuitscape_tpu_torch.solve import dispatch
         self.mod, self.real = dispatch, dispatch.solve_chunk_budget
-        self.cells = self.resident = self.setup_peak = None
+        self.cells = self.mesh = self.budget = None
+        self.devices, self.held = [], {}
 
         def rec(cells, device, *a, **k):
-            torch.cuda.synchronize(device)
+            self.mesh = k.get("mesh")
+            self.devices = (list(dict.fromkeys(
+                d for row in self.mesh.devices for d in row))
+                if self.mesh is not None else [torch.device(device)])
+            _sync(self.devices)
             self.cells = cells
-            self.resident = torch.cuda.memory_allocated(device)
-            self.setup_peak = torch.cuda.max_memory_allocated(device)
-            torch.cuda.reset_peak_memory_stats(device)
-            return self.real(cells, device, *a, **k)
+            self.resident = {d: torch.cuda.memory_allocated(d)
+                             for d in self.devices}
+            self.free = {d: dispatch._free_bytes(d) for d in self.devices}
+            self.setup_peak = card_peaks(self.devices)
+            reset_peaks(self.devices)
+            self.budget = self.real(cells, device, *a, **k)
+            return self.budget
         dispatch.solve_chunk_budget = rec
         return self
 
     def __exit__(self, *exc):
         self.mod.solve_chunk_budget = self.real
 
-    def peak(self):
-        return max(self.setup_peak, torch.cuda.max_memory_allocated())
+    def hold(self):
+        _sync(self.devices)
+        for d, b in card_peaks(self.devices).items():
+            self.held[d] = max(self.held.get(d, 0), b)
+        reset_peaks(self.devices)
 
-    def per_cell_column(self, width):
+    def solve_peak(self, d=None):
+        d = self.devices[0] if d is None else d
+        return max(self.held.get(d, 0), torch.cuda.max_memory_allocated(d))
+
+    def peak(self, d=None):
+        d = self.devices[0] if d is None else d
+        return max(self.setup_peak[d], self.solve_peak(d))
+
+    def share(self, d):
+        """The fraction of the grid's cells x columns card d holds: its
+        mesh positions over the mesh's (1 on one device)."""
+        if self.mesh is None:
+            return 1.0
+        return sum(x == d for row in self.mesh.devices
+                   for x in row) / self.mesh.size
+
+    def per_card_column(self, width):
         if self.cells is None:
             raise AssertionError("no chunk budget was taken")
-        return ((torch.cuda.max_memory_allocated() - self.resident) /
-                (self.cells * width))
+        return {d: (self.solve_peak(d) - self.resident[d]) /
+                (self.cells * self.share(d) * width) for d in self.devices}
+
+    def per_cell_column(self, width):
+        return max(self.per_card_column(width).values())
 
 
 def check_chunk_model(fp, sd, label):
@@ -1360,8 +1410,8 @@ def check_chunk_model(fp, sd, label):
     width = 1 << (int(sd["batch_width"]) - 1).bit_length()
     per = fp.per_cell_column(width)
     note(f"{label} chunk model: batch width {sd['batch_width']} (padded "
-         f"{width}), {fp.cells} cells, resident {fp.resident} B at the "
-         f"budget, solve peak {torch.cuda.max_memory_allocated()} B, "
+         f"{width}), {fp.cells} cells, resident {fp.resident[fp.devices[0]]}"
+         f" B at the budget, solve peak {fp.solve_peak()} B, "
          f"job peak {fp.peak()} B ({fp.peak() / 2**30:.3f} GiB): "
          f"{per:.3f} B a cell per column against the model's "
          f"{COLUMN_BYTES_PER_CELL}")
@@ -1395,45 +1445,139 @@ def phase_chunk_model(d):
     torch.cuda.empty_cache()
 
 
+def _column_rows(X, k, lo, hi, dev):
+    """Rows [lo, hi) of column k of X (a full (B, H, W) tensor or a
+    batched MeshBlock) as one (hi - lo, W) tensor on dev, zero rows
+    where the range passes the grid's top or bottom."""
+    H, W = X.shape[-2:]
+    out = []
+    if lo < 0:
+        out.append(torch.zeros((-lo, W), dtype=X.dtype, device=dev))
+    a, b = max(lo, 0), min(hi, H)
+    if not hasattr(X, "parts"):
+        out.append(X[k, a:b].to(dev))
+    else:
+        j, kk = 0, k
+        while kk >= X.col_counts[j]:
+            kk -= X.col_counts[j]
+            j += 1
+        r0 = 0
+        for i, n in enumerate(X.row_counts):
+            if r0 < b and a < r0 + n:
+                out.append(X.parts[i][j][kk, max(a, r0) - r0:
+                                         min(b, r0 + n) - r0].to(dev))
+            r0 += n
+    if hi > H:
+        out.append(torch.zeros((hi - H, W), dtype=X.dtype, device=dev))
+    return torch.cat(out)
+
+
+def residuals64(S64, src, dst, X):
+    """Each anchor column's float64 relative residual ||b - L x|| / ||b||
+    against the float64 operator S64, b the column's pair right-hand
+    side (-1 at src, +1 at dst, as stencil._pairs_rhs scatters it) and x
+    column k of X (full, or a MeshBlock).  One column at a time and, on a
+    mesh (S64 a ShardStencil), one row shard at a time on the shard's
+    device from its halo-extended planes, so no (B, H, W) float64 block
+    beyond X, and no full plane on a mesh, is formed."""
+    from circuitscape_tpu_torch.solve.stencil import stencil_matvec
+    H, W = S64.shape
+    if hasattr(S64, "ops"):
+        h = S64.h_local
+        shards = [(row[0], i * h, h, S64.halo)
+                  for i, row in enumerate(S64.ops)]
+    else:
+        shards = [(S64, 0, H, False)]
+    rel = []
+    for k in range(len(src)):
+        rr = bb = 0.0
+        for op, r0, h, halo in shards:
+            dev = op.diag.device
+            x = _column_rows(X, k, r0 - halo, r0 + h + halo, dev)
+            y = stencil_matvec(op, x[None])[0]
+            y = y[1:-1] if halo else y
+            b = torch.zeros((h, W), dtype=torch.float64, device=dev)
+            for (r, c), v in ((src[k], -1.0), (dst[k], 1.0)):
+                if r0 <= r < r0 + h:
+                    b[r - r0, c] += v
+            res = b - y
+            rr += float((res * res).sum())
+            bb += float((b * b).sum())
+        rel.append(math.sqrt(rr / bb))
+    return np.asarray(rel)
+
+
+class anchor_residuals:
+    """While active, every stencil pair solve of a job (on one card or a
+    mesh; stencil.stencil_solve_pairs) has each anchor column's float64
+    relative residual recomputed from its output (residuals64) right
+    after it returns, before the next chunk: rel holds them per solve,
+    meshes the (nodes, batch) shape of each solve's operator (None on
+    one device), seconds the time the checks took (for the caller to
+    take out of the job's wall) and, with keep=True, solves each
+    solve's (S64, prec).  With a chunk_footprint fp, fp.hold() runs
+    before each check and the peaks reset after it, so the check's
+    memory is not the solve's."""
+
+    def __init__(self, fp=None, keep=False):
+        self.fp, self.keep = fp, keep
+
+    def __enter__(self):
+        from circuitscape_tpu_torch.solve import stencil as st
+        self.mod, self.real = st, st.stencil_solve_pairs
+        self.rel, self.meshes, self.solves, self.seconds = [], [], [], 0.0
+
+        def rec(S64, src, dst, **k):
+            X, rel, it = self.real(S64, src, dst, **k)
+            if self.fp is not None:
+                self.fp.hold()
+            t = time.perf_counter()
+            self.rel.append(residuals64(S64, np.asarray(src),
+                                        np.asarray(dst), X))
+            self.seconds += time.perf_counter() - t
+            if self.fp is not None:
+                reset_peaks(self.fp.devices)
+            mesh = getattr(S64, "mesh", None)
+            self.meshes.append(None if mesh is None else
+                               (mesh.shape["nodes"], mesh.shape["batch"]))
+            if self.keep:
+                self.solves.append((S64, k.get("prec")))
+            return X, rel, it
+        st.stencil_solve_pairs = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.stencil_solve_pairs = self.real
+
+
 def phase_scale(cfg, level_times):
     """The scale job (make_scale_job: 6930^2, 48M cells, bucketed to
     7040^2) once through compute(..., "cuda") with the launch counters
     zeroed just before it.  It must take the large-grid route (a
     host-built hierarchy, stats mg_build), give finite, symmetric
     resistances positive off the diagonal, and leave each anchor
-    column's final float64 relative residual, recomputed here from the
-    solve's output against the float64 device operator, under the
-    job's tolerance (consts.CG_RTOL); matvec_pap, matvec and cheb_step
-    launched at 7040^2 (the fine level is wider than 4094 cells) and the
-    fused smoother at 3520^2.  Prints the CG iterations per refinement
-    pass, the batch width, the host-timer sections, peak device memory
-    and the wall time, and per_job lines from time_scale_levels."""
+    column's final float64 relative residual, recomputed from the
+    solve's output against the float64 device operator
+    (anchor_residuals), under the job's tolerance (consts.CG_RTOL);
+    matvec_pap, matvec and cheb_step launched at 7040^2 (the fine level
+    is wider than 4094 cells) and the fused smoother at 3520^2.  Prints
+    the CG iterations per refinement pass, the batch width, the
+    host-timer sections, peak device memory and the wall time (the
+    residual check's seconds taken out), and per_job lines from
+    time_scale_levels."""
     import circuitscape_tpu_torch as cst
     from circuitscape_tpu_torch import consts, stats
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
-    from circuitscape_tpu_torch.solve import stencil as st
-
-    solves = []
-    real = st.stencil_solve_pairs
-
-    def keep(S64, src, dst, **k):
-        X, rel, it = real(S64, src, dst, **k)
-        solves.append((S64, np.asarray(src), np.asarray(dst), X))
-        return X, rel, it
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     cs.reset_launch_counts()
-    st.stencil_solve_pairs = keep
-    try:
-        with chunk_footprint() as fp:
-            t = time.perf_counter()
-            r = cst.compute(cfg, device="cuda")
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t
-    finally:
-        st.stencil_solve_pairs = real
+    with chunk_footprint() as fp, anchor_residuals(fp) as res:
+        t = time.perf_counter()
+        r = cst.compute(cfg, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t - res.seconds
     launches, launches_at = dict(cs.LAUNCHES), dict(cs.LAUNCHES_AT)
     peak = fp.peak()
     sd = stats.finalize()
@@ -1451,26 +1595,16 @@ def phase_scale(cfg, level_times):
         raise AssertionError(f"scale job: hierarchy built on the "
                              f"{sd.get('mg_build')}, not the host")
     check_resistances(r, "scale job", n=4)
-    worst = 0.0
-    for S64, src, dst, X in solves:
-        H, W = S64.shape
-        nb = len(src)
-        dev = X.device
-        B64 = st._pairs_rhs(torch.as_tensor(src, device=dev),
-                            torch.as_tensor(dst, device=dev), H, W, nb)
-        R = B64 - st.stencil_matvec(S64, X[:nb])
-        rel = (torch.sqrt((R * R).sum(dim=(1, 2))) /
-               torch.sqrt((B64 * B64).sum(dim=(1, 2)))).cpu().numpy()
-        del B64, R
+    if not res.rel:
+        raise AssertionError("scale job: no pair solve ran")
+    for rel in res.rel:
         note(f"scale job: float64 relative residuals {rel.tolist()} of "
-             f"{nb} columns on the {H}x{W} operator")
+             f"{len(rel)} columns on the {sd.get('cells')}-cell operator "
+             f"({res.seconds:.3f} s to check)")
         if not np.all(rel <= consts.CG_RTOL):
             raise AssertionError(f"scale job: relative residuals {rel} "
                                  f"above {consts.CG_RTOL}")
-        worst = max(worst, float(rel.max()))
-    if not solves:
-        raise AssertionError("scale job: no pair solve ran")
-    del solves
+    worst = float(max(rel.max() for rel in res.rel))
     check_launched(launches, "scale job")
     fine, half = SCALE_HW, (SCALE_HW[0] // 2, SCALE_HW[1] // 2)
     need = [("matvec_pap",) + fine, ("matvec",) + fine,
@@ -1755,14 +1889,19 @@ def phase_maps(cfg, gmap, r_shortcut):
 
 
 class env_set:
-    """Environment variables set while active, restored after."""
+    """Environment variables set (a value of None: unset) while active,
+    restored after."""
 
     def __init__(self, **kw):
         self.kw = kw
 
     def __enter__(self):
         self.old = {k: os.environ.get(k) for k in self.kw}
-        os.environ.update(self.kw)
+        for k, v in self.kw.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
     def __exit__(self, *exc):
         for k, v in self.old.items():
@@ -2503,6 +2642,26 @@ def _sync(devices):
             torch.cuda.synchronize(d)
 
 
+def cards() -> list:
+    """Every visible CUDA device."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def reset_peaks(devices):
+    """Zero the peak-memory count of every CUDA device among devices."""
+    for d in {torch.device(d) for d in devices}:
+        if d.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(d)
+
+
+def card_peaks(devices) -> dict:
+    """{device: peak bytes allocated since its last reset} for each
+    distinct CUDA device among devices, in order."""
+    return {d: torch.cuda.max_memory_allocated(d) for d in
+            dict.fromkeys(torch.device(d) for d in devices)
+            if d.type == "cuda"}
+
+
 def mesh_job(cfg, dev, shape, label, devices=None, **env):
     """One job on a mesh (virtual shards of dev, or `devices`) with the
     launch counters zeroed just before it.  Returns (result, seconds,
@@ -2533,31 +2692,48 @@ def check_mesh_kernels(gmap, B, launches_at, dev, shape, label,
                        devices=None, **env):
     """Each kernel a mesh run launched, at each per-shard shape it
     launched at, held against its plain version on every shard of the
-    run's own hierarchy with that shape (the shard's halo-extended
-    planes, on each device that holds them), at the run's batch per
-    column group B, with phase 2's tolerance."""
-    from circuitscape_tpu_torch.parallel.mesh import _on
+    run's own hierarchy (rebuilt here from gmap on the same mesh) with
+    that shape (check_shard_kernels)."""
     from circuitscape_tpu_torch.solve.prepare import (
         prepare_stencil_solver_from_gmap)
     with virtual_mesh(dev, shape, devices, **env):
         _, prec, _, _ = prepare_stencil_solver_from_gmap(gmap, False, False,
                                                          dev)
+    check_shard_kernels(prec, B, launches_at, label)
+
+
+def _level_ops(L):
+    """(operator, Dinv) of a hierarchy level at each mesh position (a
+    sharded level's halo-extended ones), or the level's own on one
+    device."""
+    if hasattr(L.A, "ops"):
+        return [(op, L.A.dinv[i][j]) for i, row in enumerate(L.A.ops)
+                for j, op in enumerate(row)]
+    return [(L.A, L.inv_diag)]
+
+
+def check_shard_kernels(prec, B, launches_at, label):
+    """Each kernel a run launched, at each (per-shard) shape it launched
+    at, held against its plain version on every shard of the run's
+    hierarchy prec with that shape (the shard's halo-extended planes, on
+    each device that holds them; the level itself on one device), at
+    the run's batch per column group B, with phase 2's tolerance; shard
+    0's launch timed beside its byte bound.  Returns the lines' times
+    as {(name, H, W): (ms, bound ms)}."""
+    from circuitscape_tpu_torch import stats
+    from circuitscape_tpu_torch.parallel.mesh import _on
     by_shape, seen = {}, set()
     for L in prec.levels:
-        for i, row in enumerate(L.A.ops):
-            for j, op in enumerate(row):
-                if id(op) not in seen:
-                    seen.add(id(op))
-                    by_shape.setdefault(tuple(op.shape), []).append(
-                        (op, L.A.dinv[i][j]))
-    from circuitscape_tpu_torch import stats
-    rate = stats.device_bytes_per_s(torch.cuda.get_device_name(dev))
-    n, worst, times = 0, 0.0, []
+        for op, dinv in _level_ops(L):
+            if id(op) not in seen:
+                seen.add(id(op))
+                by_shape.setdefault(tuple(op.shape), []).append((op, dinv))
+    n, worst, times = 0, 0.0, {}
     for (name, H, W), _ in sorted(launches_at.items()):
         ops = by_shape.get((H, W))
         if not ops:
             raise AssertionError(f"{label}: {name} launched at {H}x{W}, "
-                                 f"no shard of the mesh hierarchy has it")
+                                 f"no shard of the hierarchy has it")
         for k, (op, dinv) in enumerate(ops):
             odev = op.diag.device
             with _on(odev):
@@ -2568,12 +2744,17 @@ def check_mesh_kernels(gmap, B, launches_at, dev, shape, label,
                     f"{label} shard {k} on {odev} B={B} {H}x{W}"))
                 n += 1
                 if k == 0:
-                    bound = kernel_bytes(name, B, H, W) / rate * 1e3
-                    times.append(f"{name} {H}x{W} {cuda_ms(kern):.4f} ms "
-                                 f"(bound {bound:.4f})")
+                    rate = stats.device_bytes_per_s(
+                        torch.cuda.get_device_name(odev))
+                    times[(name, H, W)] = (
+                        cuda_ms(kern), kernel_bytes(name, B, H, W) / rate *
+                        1e3)
+                del blocks, kern, plain
     note(f"{label}: {n} per-shard kernel launches agree with their plain "
          f"versions (worst max abs err {worst:.3e}); shard 0 at B={B}: " +
-         "; ".join(times))
+         "; ".join(f"{name} {H}x{W} {ms:.4f} ms (bound {bound:.4f})"
+                   for (name, H, W), (ms, bound) in times.items()))
+    return times
 
 
 def _rel(a, b):
@@ -2682,11 +2863,68 @@ def phase_mesh(d, cfg, gmap, r_plain, adv_cfg, v_adv, devices=None):
                        f"2048x2048 job on ({n},1)", devices)
 
 
-def main_cards(dev, dev_name):
+def phase_capacity(side=None, out=None):
+    """20. bench_capacity_torch.py's row b (14336^2, 205.5M cells, or
+    side^2) on a mesh of every visible card (CS_FORCE_MESH, the default
+    shape) and on one card (CS_DISABLE_MESH), through
+    bench_capacity_torch.run_row with that row's checks (resistances,
+    6 pairs solved, each anchor column's float64 residual a shard at a
+    time, the hierarchy's route, the mesh's shape, the one-card run
+    within 1e-4 relative of the mesh run's); then every kernel each run
+    launched held against its plain version on every shard of that
+    run's own hierarchy at the shard's halo-extended shape, at the run's
+    batch per column group (check_shard_kernels, phase 2's tolerance),
+    shard 0's launch timed beside its byte bound.  Prints each run's
+    wall, CG passes, residuals, host peak, per-card memory and launches
+    per shape; with out, writes the runs' records there as
+    bench_capacity_torch.py does.  A failed check raises."""
+    import bench_capacity_torch as bct
+    row_side, runs = bct.ROWS["b"]
+    side = side or row_side
+    records, tags = [], bct._tags("cuda")
+
+    def record(rec):
+        records.append({**rec, **tags})
+        if out:
+            with open(out, "w") as f:
+                json.dump(records, f, indent=1)
+
+    def after(run, rec, extras):
+        label = f"capacity row b ({side}^2), {run.label}"
+        note(f"{label}: {rec['wall_s']:.3f} s wall, per-pass CG "
+             f"{rec['pass_iters']}, batch width {rec['batch_width']}, "
+             f"build {rec['mg_build']}, mg_kernels {rec['mg_kernels']}, "
+             f"float64 residuals {rec['residuals']}, host peak "
+             f"{rec['host_peak_rss_gb']:.3f} GiB, stages {rec['stages']}")
+        note(f"{label} per card: " + "; ".join(
+            f"{c['device']} fixed {c['fixed_gb']:.3f} GiB, peak "
+            f"{c['peak_gb']:.3f} GiB (model {c['model_gb']:.3f}), "
+            f"{c['column_bytes_per_cell']:.3f} B a cell per column"
+            for c in rec.get("cards_memory", [])))
+        note(f"{label} launches per shape " + ", ".join(
+            f"{k} {H}x{W}: {n}"
+            for (k, H, W), n in sorted(extras["launches_at"].items())))
+        if "error" in rec:
+            raise AssertionError(f"{label}: {rec['error']}")
+        for _, prec in extras["solves"][:1]:
+            check_shard_kernels(prec, extras["batch"],
+                                extras["launches_at"], label)
+
+    with env_set(**dict.fromkeys(bct.ROUTING)):
+        recs = bct.run_row("b", side, runs, "cuda", record, after=after,
+                           catch=False)
+    note(f"capacity row b ({side}^2): the one-card run agrees with the mesh "
+         f"run to {recs[-1]['agreement']['max_rel']:.6e} relative (tolerance "
+         f"{bct.AGREE_TOL}); the default routing takes "
+         f"{recs[0]['default_route']}")
+
+
+def main_cards(dev, dev_name, capacity_out=None):
     """--cards: the build and phase_mesh across every visible card,
-    against one-card runs of the bench and advanced jobs."""
+    against one-card runs of the bench and advanced jobs; then phase 20
+    (phase_capacity, its records written to capacity_out if given)."""
     import circuitscape_tpu_torch as cst
-    devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devs = cards()
     phase_build()
     scratch = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(scratch, exist_ok=True)
@@ -2705,6 +2943,9 @@ def main_cards(dev, dev_name):
             v1 = cst.compute(adv_cfg, device=dev)
         phase_mesh(tempfile.mkdtemp(dir=d), cfg, gmap, r1, adv_cfg, v1,
                    devices=devs)
+        t = time.perf_counter()
+        phase_capacity(out=capacity_out)
+        note(f"capacity row b (phase 20): {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(d, ignore_errors=True)
     note(card_line())
@@ -2731,7 +2972,9 @@ def main(argv=()):
             print("chip_smoke --cards: needs two cards or more",
                   file=sys.stderr)
             return 2
-        return main_cards(dev, dev_name)
+        out = (argv[argv.index("--capacity-out") + 1]
+               if "--capacity-out" in argv else None)
+        return main_cards(dev, dev_name, out)
     t_start = time.perf_counter()
     phase_build()
     scratch = os.path.join(HERE, "build", "chip_smoke")

@@ -1,8 +1,9 @@
 """circuitscape_tpu_torch stands alone: importing it loads no JAX, no
 module of it (or chip_smoke.py, profile_torch.py, torch_golden.py,
-bench_torch.py, bench_suite_torch.py, compare_residual_init.py) imports
-JAX, circuitscape_tpu, bench_suite.py or tests/golden_utils.py (which
-imports circuitscape_tpu), and
+bench_torch.py, bench_suite_torch.py, bench_capacity_torch.py,
+compare_residual_init.py) imports JAX, circuitscape_tpu, bench_suite.py,
+bench_capacity.py or tests/golden_utils.py (which imports
+circuitscape_tpu), and
 its entry points run on CUDA unless the caller asks for the CPU.  Also
 the host-side modules copied from the JAX package, against it."""
 
@@ -23,7 +24,7 @@ def _port_files():
     files = [os.path.join(ROOT, n) for n in (
         "chip_smoke.py", "profile_torch.py", "torch_golden.py",
         "bench_torch.py", "bench_suite_torch.py",
-        "compare_residual_init.py")]
+        "bench_capacity_torch.py", "compare_residual_init.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -80,7 +81,8 @@ def test_source_imports_no_jax(path):
         for n in names:
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "circuitscape_tpu",
-                               "bench_suite", "golden_utils"), \
+                               "bench_suite", "bench_capacity",
+                               "golden_utils"), \
                 f"{path}:{node.lineno} imports {n}"
 
 
