@@ -1,0 +1,8 @@
+"""peak_mem_gib: torch.cuda.max_memory_allocated() over the window, reset
+at its start, in GiB."""
+
+
+def read(run):
+    if run.card["platform"] != "gpu":
+        return None
+    return run.peak_bytes / 2**30
