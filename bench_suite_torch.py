@@ -31,8 +31,7 @@ sizes the port reads byte for byte the files bench_suite.py writes:
 Per record: cold_s (the first compute() of the job in this process:
 kernel library load, CUDA context and allocator growth included) and
 warm_s (the second), each run synchronized (chip_smoke.time_job), the
-stats of each run (cold_run, warm_run: CG iterations, sustained nnz/s,
-the fine SpMV's share of the card's memory roofline, MG kernel routes,
+stats of each run (cold_run, warm_run: CG iterations, MG kernel routes,
 peak device memory, seconds per stage with each timer second counted
 once), vs_* ratios against the reference's published 20-core Xeon
 timings (docs/src/benchmark/plot.jl:7-9), the device and the card's
@@ -224,8 +223,8 @@ def stage_seconds(sections):
 
 
 def job_stats(device):
-    """The stats of the job that just ran: bench_suite.py's fields (with
-    the port's fine_spmv_pct_of_mem_roofline), its refinement passes,
+    """The stats of the job that just ran: bench_suite.py's fields less
+    sustained_nnz_per_s, its refinement passes,
     batch width and hierarchy build where it has them, peak device
     memory since the last reset (cuda), and stages in seconds."""
     import torch
@@ -233,8 +232,8 @@ def job_stats(device):
     from circuitscape_tpu_torch.timer import CSTIMER
     d = stats.finalize()
     rec = {k: d[k] for k in (
-        "cg_iters", "sustained_nnz_per_s", "fine_spmv_pct_of_mem_roofline",
-        "mg_kernels", "pass_iters", "batch_width", "mg_build") if k in d}
+        "cg_iters", "mg_kernels", "pass_iters", "batch_width",
+        "mg_build") if k in d}
     if torch.device(device).type == "cuda":
         rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     stages = job_stages(dict(CSTIMER._data))

@@ -21,10 +21,8 @@ runs (chip_smoke.time_job, the timing of chip_smoke.py's phase 3), each
 synchronized; each run's time goes to stderr.
 
 Prints ONE JSON line: bench.py's metric, value (the best of the two
-runs, s), unit, vs_baseline (89.6 s / value), cg_iters,
-sustained_nnz_per_s, mg_kernels, the port's fine_spmv_pct_of_mem_roofline
-(null where the device's memory rate is unknown, as on the CPU), both
-runs' times and their spread, the device, the card's name and power
+runs, s), unit, vs_baseline (89.6 s / value), cg_iters, mg_kernels,
+both runs' times and their spread, the device, the card's name and power
 limit as nvidia-smi gives them (null on the CPU), and the golden
 replay's verdict on the default route (torch_golden.run_subset) under
 cuda_golden ("cpu_golden" with --device cpu; CS_CUDA_GOLDEN=0 skips it).
@@ -70,10 +68,7 @@ def bench_line(times, st, device):
         "runs_s": list(times),
         "spread_s": max(times) - best,
         "cg_iters": st.get("cg_iters"),
-        "sustained_nnz_per_s": st.get("sustained_nnz_per_s"),
         "mg_kernels": st.get("mg_kernels"),
-        "fine_spmv_pct_of_mem_roofline": st.get(
-            "fine_spmv_pct_of_mem_roofline"),
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
         "card": card_line() if cuda else None,
     }

@@ -1039,8 +1039,7 @@ def phase_main(cfg, rows, golden):
         rows[name]["launches"] = n
     note(f"main path: best of 2 = {best:.3f} s, cg_iters "
          f"{st.get('cg_iters')}, mg_kernels {st.get('mg_kernels')}, "
-         f"solve_s {st.get('solve_s'):.3f}, fine_spmv_pct_of_mem_roofline "
-         f"{st.get('fine_spmv_pct_of_mem_roofline')}")
+         f"solve_s {st.get('solve_s'):.3f}")
     if st.get("cg_iters") != CG_ITERS:
         raise AssertionError(f"main path: {st.get('cg_iters')} CG "
                              f"iterations, expected {CG_ITERS}")
@@ -1587,9 +1586,7 @@ def phase_scale(cfg, level_times):
          f"{sd.get('batch_width')}, {sd.get('cells')} cells, hierarchy "
          f"built on the {sd.get('mg_build')}, mg_kernels "
          f"{sd.get('mg_kernels')}, peak device memory {peak} B "
-         f"({peak / 2**30:.3f} GiB), solve_s {sd.get('solve_s'):.3f}, "
-         f"fine_spmv_pct_of_mem_roofline "
-         f"{sd.get('fine_spmv_pct_of_mem_roofline')}")
+         f"({peak / 2**30:.3f} GiB), solve_s {sd.get('solve_s'):.3f}")
     note(f"scale job sections {_sections()}")
     if sd.get("mg_build") != "host":
         raise AssertionError(f"scale job: hierarchy built on the "

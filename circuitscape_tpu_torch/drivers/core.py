@@ -159,7 +159,8 @@ def single_ground_all_pairs(prob: GraphProblem, flags, cfg, device,
     cslog.info("Graph has %s nodes, %s focal points and %s connected "
                "components", a.shape[0], numpoints, len(prob.cc))
 
-    num_pairs = get_num_pairs(prob.cc, points, exclude, orig_pts)
+    with CSTIMER.span("count pairs"):
+        num_pairs = get_num_pairs(prob.cc, points, exclude, orig_pts)
     if log:
         cslog.info("Total number of pair solves = %s", num_pairs)
 
@@ -180,8 +181,9 @@ def single_ground_all_pairs(prob: GraphProblem, flags, cfg, device,
     done_pairs = ckpt.load(resistances, cum, voltmatrix)
     if get_shortcut:
         cslog.info("Triggering resistance calculation shortcut")
-        num_pairs = get_num_pairs_shortcut(prob.cc, points, exclude,
-                                           orig_pts)
+        with CSTIMER.span("count pairs"):
+            num_pairs = get_num_pairs_shortcut(prob.cc, points, exclude,
+                                               orig_pts)
         cslog.info("Total number of pair solves has been reduced to %s",
                    num_pairs)
     if stencil_base and get_shortcut:
@@ -332,12 +334,13 @@ def postprocess(output: _Output, component_data, flags, shortcut, cfg, cum):
 def _save_padded(resistances, orig_pts, cfg):
     """Zero diagonal, pad with the user point ids (src/core.jl:299),
     write the resistance files; returns the padded matrix."""
-    dtype = resistances.dtype
-    np.fill_diagonal(resistances, 0)
-    op = np.asarray(orig_pts, dtype)
-    r = np.vstack([np.concatenate([np.zeros(1, dtype), op])[None, :],
-                   np.column_stack([op, resistances])])
-    out.save_resistances(r, cfg)
+    with CSTIMER.span("write resistances"):
+        dtype = resistances.dtype
+        np.fill_diagonal(resistances, 0)
+        op = np.asarray(orig_pts, dtype)
+        r = np.vstack([np.concatenate([np.zeros(1, dtype), op])[None, :],
+                       np.column_stack([op, resistances])])
+        out.save_resistances(r, cfg)
     return r
 
 
@@ -398,28 +401,32 @@ def _stencil_shortcut_solve(prob, flags, resistances, voltmatrix,
     jobs = []       # (comp_sorted, anchor_point_idx)
     pair_cols = []  # flat: (src_cell, dst_cell)
     col_meta = []   # flat: (comp_id, src_node, dst_node, comp, anchor)
-    for comp_id, comp in enumerate(prob.cc):
-        comp = np.sort(np.asarray(comp))
-        csub = _sub_focal(points, comp)
-        if not csub:
-            continue
-        src_node = csub[0]
-        src_indices = np.nonzero(points == src_node)[0]
-        for ii in range(len(src_indices)):
-            for jj in range(ii + 1, len(src_indices)):
-                resistances[src_indices[ii], src_indices[jj]] = 0
-                resistances[src_indices[jj], src_indices[ii]] = 0
-        anchor = int(src_indices[0])
-        jobs.append((comp, anchor))
-        for dst_node in csub[1:]:
-            if done_pairs:
-                dst_indices = np.nonzero(points == dst_node)[0]
-                combos = [(int(ci), int(cj)) for ci in src_indices
-                          for cj in dst_indices]
-                if combos and all(c in done_pairs for c in combos):
-                    continue  # resumed: resistances+voltmatrix restored
-            pair_cols.append((node_cell[src_node], node_cell[dst_node]))
-            col_meta.append((comp_id, src_node, dst_node, comp, anchor))
+    with CSTIMER.span("assemble anchor pairs"):
+        for comp_id, comp in enumerate(prob.cc):
+            comp = np.sort(np.asarray(comp))
+            csub = _sub_focal(points, comp)
+            if not csub:
+                continue
+            src_node = csub[0]
+            src_indices = np.nonzero(points == src_node)[0]
+            for ii in range(len(src_indices)):
+                for jj in range(ii + 1, len(src_indices)):
+                    resistances[src_indices[ii], src_indices[jj]] = 0
+                    resistances[src_indices[jj], src_indices[ii]] = 0
+            anchor = int(src_indices[0])
+            jobs.append((comp, anchor))
+            for dst_node in csub[1:]:
+                if done_pairs:
+                    dst_indices = np.nonzero(points == dst_node)[0]
+                    combos = [(int(ci), int(cj)) for ci in src_indices
+                              for cj in dst_indices]
+                    if combos and all(c in done_pairs for c in combos):
+                        # resumed: resistances+voltmatrix restored
+                        continue
+                pair_cols.append((node_cell[src_node],
+                                  node_cell[dst_node]))
+                col_meta.append((comp_id, src_node, dst_node, comp,
+                                 anchor))
 
     if pair_cols:
         nb = len(pair_cols)
@@ -459,41 +466,53 @@ def _stencil_shortcut_solve(prob, flags, resistances, voltmatrix,
                     f"{float(relres.max())} exceeds tolerance "
                     f"{consts.RESIDUAL_GATE}")
             # fetch only the voltages at focal cells (nb x npts)
-            sc_dev = torch.as_tensor(
-                np.concatenate([src_cells,
-                                np.zeros((X.shape[0] - bsz, 2), np.int64)]),
-                device=X.device)
-            Vp_dev, _ = _extract_point_voltages(X, sc_dev, point_cells_dev)
-            Vp = Vp_dev[:bsz].cpu().numpy()          # (bsz, npts)
+            with CSTIMER.span("fetch focal voltages"):
+                sc_dev = torch.as_tensor(
+                    np.concatenate([src_cells,
+                                    np.zeros((X.shape[0] - bsz, 2),
+                                             np.int64)]),
+                    device=X.device)
+                Vp_dev, _ = _extract_point_voltages(X, sc_dev,
+                                                    point_cells_dev)
+                Vp = Vp_dev[:bsz].cpu().numpy()          # (bsz, npts)
 
-            for col in range(bsz):
-                comp_id, src_node, dst_node, comp, anchor = col_meta[s0 + col]
-                dst_indices = np.nonzero(points == dst_node)[0]
-                src_indices = np.nonzero(points == src_node)[0]
-                # any point index mapping to dst_node reads the same value
-                resistance = float(Vp[col, dst_indices[0]])
-                in_comp = _focal_in_comp(points, comp)
-                with np.errstate(divide="ignore", invalid="ignore"):
-                    volt_col = 1.0 - Vp[col] / resistance
-                for c_i in src_indices:
-                    for c_j in dst_indices:
-                        resistances[c_i, c_j] = resistance
-                        resistances[c_j, c_i] = resistance
-                        # voltmatrix column fill (update_voltmatrix
-                        # semantics, vectorized over points)
-                        sel = in_comp.copy()
-                        sel[0] = False  # row 0 never filled (reference)
-                        voltmatrix[sel, c_j] = volt_col[sel]
-                if ckpt is not None and ckpt.enabled:
-                    ckpt.mark([(int(ci), int(cj)) for ci in src_indices
-                               for cj in dst_indices])
+            with CSTIMER.span("fill resistances and voltmatrix"):
+                _fill_anchor_columns(Vp, col_meta[s0:s0 + bsz], points,
+                                     resistances, voltmatrix, ckpt)
             if ckpt is not None:
                 ckpt.save(resistances, None, voltmatrix)
 
-    for comp, anchor in jobs:
-        update_shortcut_resistances(anchor,
-                                    _Shortcut(True, voltmatrix, shortcut_res),
-                                    resistances, points, comp)
+    with CSTIMER.span("update shortcut resistances"):
+        for comp, anchor in jobs:
+            update_shortcut_resistances(
+                anchor, _Shortcut(True, voltmatrix, shortcut_res),
+                resistances, points, comp)
+
+
+def _fill_anchor_columns(Vp, meta, points, resistances, voltmatrix, ckpt):
+    """One chunk's anchor solves into resistances and voltmatrix: Vp
+    (chunk columns, points) holds each solve's voltages at the focal
+    cells, meta its columns' col_meta entries."""
+    for col, (_, src_node, dst_node, comp, _) in enumerate(meta):
+        dst_indices = np.nonzero(points == dst_node)[0]
+        src_indices = np.nonzero(points == src_node)[0]
+        # any point index mapping to dst_node reads the same value
+        resistance = float(Vp[col, dst_indices[0]])
+        in_comp = _focal_in_comp(points, comp)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            volt_col = 1.0 - Vp[col] / resistance
+        for c_i in src_indices:
+            for c_j in dst_indices:
+                resistances[c_i, c_j] = resistance
+                resistances[c_j, c_i] = resistance
+                # voltmatrix column fill (update_voltmatrix semantics,
+                # vectorized over points)
+                sel = in_comp.copy()
+                sel[0] = False  # row 0 never filled (reference)
+                voltmatrix[sel, c_j] = volt_col[sel]
+        if ckpt is not None and ckpt.enabled:
+            ckpt.mark([(int(ci), int(cj)) for ci in src_indices
+                       for cj in dst_indices])
 
 
 def _maps_pairs(prob, exclude, done_pairs, resistances):
@@ -587,21 +606,23 @@ def _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
     dev = S64.diag.device
     proj = _polygon_projector(prob, S64)
 
-    rr, cc_ = np.nonzero(nodemap)
-    node_cell = np.zeros((int(nodemap.max()) + 1, 2), np.int64)
-    node_cell[nodemap[rr, cc_]] = np.column_stack([rr, cc_])
-    # component label per cell: a pair's voltages are zero outside its
-    # component (create_voltage_map on the local nodemap)
-    comp_label_of_node = np.zeros(int(nodemap.max()) + 1, np.int32)
-    for ci, comp in enumerate(prob.cc):
-        comp_label_of_node[np.asarray(comp)] = ci + 1
-    labels_grid = np.zeros((Hp, Wp), np.int32)
-    labels_grid[rr, cc_] = comp_label_of_node[nodemap[rr, cc_]]
-    labels_dev = torch.as_tensor(labels_grid, device=dev)
+    with CSTIMER.span("label components"):
+        rr, cc_ = np.nonzero(nodemap)
+        node_cell = np.zeros((int(nodemap.max()) + 1, 2), np.int64)
+        node_cell[nodemap[rr, cc_]] = np.column_stack([rr, cc_])
+        # component label per cell: a pair's voltages are zero outside
+        # its component (create_voltage_map on the local nodemap)
+        comp_label_of_node = np.zeros(int(nodemap.max()) + 1, np.int32)
+        for ci, comp in enumerate(prob.cc):
+            comp_label_of_node[np.asarray(comp)] = ci + 1
+        labels_grid = np.zeros((Hp, Wp), np.int32)
+        labels_grid[rr, cc_] = comp_label_of_node[nodemap[rr, cc_]]
+        labels_dev = torch.as_tensor(labels_grid, device=dev)
 
     ckpt = Checkpoint(getattr(cfg, "checkpoint_file", ""))
     done_pairs = ckpt.load(resistances, cum)
-    pair_list = _maps_pairs(prob, exclude, done_pairs, resistances)
+    with CSTIMER.span("assemble pairs"):
+        pair_list = _maps_pairs(prob, exclude, done_pairs, resistances)
 
     write_pair_files = of.write_cur_maps and not of.write_cum_cur_map_only
     need_cur = (of.write_cur_maps or of.write_cum_cur_map_only or
@@ -693,15 +714,16 @@ def _stencil_maps_solve(prob, flags, cfg, resistances, cum, exclude,
                     f"{consts.RESIDUAL_GATE}")
             # normalise each column to its source cell, zero outside the
             # pair's component
-            cols = torch.arange(bsz, device=dev)
-            scj = torch.as_tensor(src_cells, device=dev)
-            dcj = torch.as_tensor(dst_cells, device=dev)
-            Xb = X[:bsz]
-            vsrc = Xb[cols, scj[:, 0], scj[:, 1]]
-            pair_label = labels_dev[scj[:, 0], scj[:, 1]]
-            in_comp = labels_dev[None] == pair_label[:, None, None]
-            Xb = torch.where(in_comp, Xb - vsrc[:, None, None], 0.0)
-            rvals = Xb[cols, dcj[:, 0], dcj[:, 1]].cpu().numpy()
+            with CSTIMER.span("normalise columns"):
+                cols = torch.arange(bsz, device=dev)
+                scj = torch.as_tensor(src_cells, device=dev)
+                dcj = torch.as_tensor(dst_cells, device=dev)
+                Xb = X[:bsz]
+                vsrc = Xb[cols, scj[:, 0], scj[:, 1]]
+                pair_label = labels_dev[scj[:, 0], scj[:, 1]]
+                in_comp = labels_dev[None] == pair_label[:, None, None]
+                Xb = torch.where(in_comp, Xb - vsrc[:, None, None], 0.0)
+                rvals = Xb[cols, dcj[:, 0], dcj[:, 1]].cpu().numpy()
 
             copies = {}
             if need_cur:

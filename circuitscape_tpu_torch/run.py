@@ -36,21 +36,26 @@ def resolve_device(device=None) -> torch.device:
 
 def compute(path_or_dict, device=None):
     """Run a job from an INI file path or a raw config dict
-    (src/run.jl:14-24) on `device` (default: the current CUDA device)."""
-    dev = resolve_device(device)
-    if isinstance(path_or_dict, str):
-        cfg = parse_config(path_or_dict)
-    else:
-        cfg_dict = init_config()
-        cfg_dict.update(path_or_dict)
-        cfg = CSConfig.from_dict(cfg_dict)
-    return _run(cfg, dev)
+    (src/run.jl:14-24) on `device` (default: the current CUDA device).
+    The job's span log (CSTIMER) starts here: its root span covers the
+    whole call."""
+    with CSTIMER.job("compute"):
+        dev = resolve_device(device)
+        with CSTIMER.span("read config"):
+            if isinstance(path_or_dict, str):
+                cfg = parse_config(path_or_dict)
+            else:
+                cfg_dict = init_config()
+                cfg_dict.update(path_or_dict)
+                cfg = CSConfig.from_dict(cfg_dict)
+        return _run(cfg, dev)
 
 
 def _run(cfg: CSConfig, device: torch.device):
     """src/run.jl:26-45."""
-    cslog.update_logging(cfg)
-    write_config(cfg)
+    with CSTIMER.span("write config"):
+        cslog.update_logging(cfg)
+        write_config(cfg)
     dtype = np.float32 if cfg.precision == "single" else np.float64
     if dtype == np.float32 and cfg.solver == "mklpardiso":
         cslog.warn("Pardiso solver works only in double precision. "

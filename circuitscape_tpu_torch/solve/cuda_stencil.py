@@ -60,8 +60,8 @@ over blocks instead of walked 32 deep by each thread.
 Each wrapper takes CPU tensors to its plain-torch version (the tests run
 there) and CUDA tensors to its kernel; on a CUDA tensor it launches the
 kernel or raises, never falls back.  LAUNCHES counts kernel launches per
-wrapper, LAUNCHES_AT per wrapper and (H, W) of the grid (plain calls do
-not count).
+wrapper, LAUNCHES_AT per wrapper and (H, W) of the grid, LAUNCHES_BHW
+per wrapper and (B, H, W) of the block (plain calls do not count).
 """
 
 from __future__ import annotations
@@ -85,11 +85,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # launches per wrapper, for showing that a run went through the kernels,
-# and per (wrapper, H, W) of the launch's grid
+# per (wrapper, H, W) of the launch's grid and per (wrapper, B, H, W) of
+# its block
 LAUNCHES = {"matvec": 0, "matvec_pap": 0, "cheb_step": 0,
             "residual_restrict": 0, "cheb_init": 0, "residual_init": 0,
             "cheb_finish": 0}
 LAUNCHES_AT = Counter()
+LAUNCHES_BHW = Counter()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -115,11 +117,13 @@ def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     LAUNCHES_AT.clear()
+    LAUNCHES_BHW.clear()
 
 
-def _launched(name: str, H: int, W: int):
+def _launched(name: str, B: int, H: int, W: int):
     LAUNCHES[name] += 1
     LAUNCHES_AT[(name, H, W)] += 1
+    LAUNCHES_BHW[(name, B, H, W)] += 1
 
 
 def _nvcc() -> str:
@@ -306,7 +310,7 @@ def matvec(A: StencilOperator, x: torch.Tensor) -> torch.Tensor:
     B, H, W = x.shape
     _raise_if(lib.cs_matvec(*map(_ptr, A.planes), _ptr(x), _ptr(y),
                             B, H, W, _stream(x.device)), "matvec")
-    _launched("matvec", H, W)
+    _launched("matvec", B, H, W)
     return y
 
 
@@ -328,7 +332,7 @@ def matvec_pap(A: StencilOperator, x: torch.Tensor):
     _raise_if(lib.cs_matvec_pap(*map(_ptr, A.planes), _ptr(x), _ptr(y),
                                 _ptr(part), B, H, W, _stream(x.device)),
               "matvec_pap")
-    _launched("matvec_pap", H, W)
+    _launched("matvec_pap", B, H, W)
     return y, part.sum(dim=1)
 
 
@@ -349,7 +353,7 @@ def cheb_step(A: StencilOperator, dinv: torch.Tensor, r, d, x, ca: float,
                                _ptr(xo), ca, cb, B, H, W,
                                _stream(r.device)),
               "cheb_step")
-    _launched("cheb_step", H, W)
+    _launched("cheb_step", B, H, W)
     return ro, do, xo
 
 
@@ -371,7 +375,7 @@ def residual_restrict(A: StencilOperator, b: torch.Tensor, x: torch.Tensor):
                                        _ptr(x), _ptr(rc), B, H, W,
                                        _stream(x.device)),
               "residual_restrict")
-    _launched("residual_restrict", H, W)
+    _launched("residual_restrict", B, H, W)
     return rc
 
 
@@ -390,7 +394,7 @@ def cheb_init(A: StencilOperator, dinv: torch.Tensor, b: torch.Tensor,
     _raise_if(lib.cs_cheb_init(*map(_ptr, A.planes), _ptr(dinv), _ptr(b),
                                _ptr(x), c, ca, cb, B, H, W,
                                _stream(b.device)), "cheb_init")
-    _launched("cheb_init", H, W)
+    _launched("cheb_init", B, H, W)
     return x
 
 
@@ -410,7 +414,7 @@ def residual_init(A: StencilOperator, dinv: torch.Tensor, b: torch.Tensor,
                                    _ptr(b), _ptr(x), _ptr(r0), _ptr(x1), c,
                                    B, H, W, _stream(x.device)),
               "residual_init")
-    _launched("residual_init", H, W)
+    _launched("residual_init", B, H, W)
     return r0, x1
 
 
@@ -431,5 +435,5 @@ def cheb_finish(A: StencilOperator, dinv: torch.Tensor, r0: torch.Tensor,
     _raise_if(lib.cs_cheb_finish(*map(_ptr, A.planes), _ptr(dinv), _ptr(r0),
                                  _ptr(x1), _ptr(x2), c, ca, cb, B, H, W,
                                  _stream(r0.device)), "cheb_finish")
-    _launched("cheb_finish", H, W)
+    _launched("cheb_finish", B, H, W)
     return x2

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import stats
+from ..timer import CSTIMER
 
 
 @dataclass
@@ -849,19 +850,20 @@ def _solve_pairs_fused(S64, A_lo, prec, prec_apply, sc, dc, point_cells,
     rel = torch.where(bnorm > 0, math.inf, 0.0)
     iters = npass = 0
     while npass < MAX_PASSES and bool(torch.any(rel > rtol)):
-        R32 = R.to(torch.float32)
-        tol32 = torch.maximum(
-            tol64, INNER_RTOL * torch.sqrt(_colsum(R32 * R32))
-        ).to(torch.float32)
-        st = _cg_state_init(A_lo, R32, prec, prec_apply, None, proj)
-        st = _cg_loop(A_lo, R32, st, tol32, safe32, kcap, kcap, prec,
-                      prec_apply, None, proj)
-        X = X + st.X.to(torch.float64)
-        R = B64 - _apply_op(S64, X, None, proj)
-        rel = torch.sqrt(_colsum(R * R)) / safe_bnorm
-        iters += st.k
-        npass += 1
-        stats.record_pass(st.k)
+        with CSTIMER.span("refinement pass"):
+            R32 = R.to(torch.float32)
+            tol32 = torch.maximum(
+                tol64, INNER_RTOL * torch.sqrt(_colsum(R32 * R32))
+            ).to(torch.float32)
+            st = _cg_state_init(A_lo, R32, prec, prec_apply, None, proj)
+            st = _cg_loop(A_lo, R32, st, tol32, safe32, kcap, kcap, prec,
+                          prec_apply, None, proj)
+            X = X + st.X.to(torch.float64)
+            R = B64 - _apply_op(S64, X, None, proj)
+            rel = torch.sqrt(_colsum(R * R)) / safe_bnorm
+            iters += st.k
+            npass += 1
+            stats.record_pass(st.k)
     return X, rel, iters
 
 

@@ -2,12 +2,9 @@
 
 Counterpart of circuitscape_tpu/stats.py.  The device drivers record
 machine-readable stats here: total CG iterations, fine-operator nnz,
-pure solve seconds, the kernel route used at each MG level, and the
-derived sustained nnz/s + %-of-memory-roofline for the fine-level SpMV.
-
-The roofline uses the memory rate of the card that ran the job
-(device_bytes_per_s), never a TPU figure; on the CPU, or on a card
-missing from the table, no roofline share is derived.
+pure solve seconds, the kernel route used at each MG level.  finalize()
+adds the job's span log (timer.CSTIMER) and the kernel launches per
+(wrapper, B, H, W) counted since cuda_stencil.reset_launch_counts().
 
 Reset per job by run._run; read by chip_smoke.py after each compute().
 """
@@ -18,10 +15,6 @@ import threading
 
 _lock = threading.Lock()
 JOB: dict = {}
-
-# Weight planes the port's stencil kernels read per matvec: we, ws, wse,
-# wne, diag (the TPU kernels read nine pre-shifted copies).
-PLANES = 5
 
 # Published device-memory rates (NVIDIA data sheets), matched against
 # torch.cuda.get_device_name(); first match wins.
@@ -46,7 +39,8 @@ def reset():
         JOB.clear()
 
 
-_ACCUM = {"cg_iters", "col_iters", "spmv_bytes", "solve_s", "factor_s"}
+_ACCUM = {"cg_iters", "col_iters", "stencil_solves", "solve_s",
+          "factor_s"}
 
 
 def record(**kw):
@@ -69,26 +63,17 @@ def record_pass(iters: int):
 def record_solve(x_shape, iters: int, seconds: float):
     """Accumulate one batched device solve: x_shape = (B, H, W) of the
     device RHS block (padded batch), iters = device CG iterations."""
-    b, h, w = x_shape
-    record(cg_iters=int(iters), col_iters=int(b) * int(iters),
-           spmv_bytes=int(iters) * spmv_bytes(h * w, b),
-           solve_s=float(seconds))
-
-
-def spmv_bytes(cells: int, batch: int, dtype_bytes: int = 4) -> int:
-    """Bytes one batched fine-level matvec must move: x and y once per
-    column plus the weight planes once (reused across the batch)."""
-    return (2 * batch + PLANES) * cells * dtype_bytes
+    record(cg_iters=int(iters), col_iters=int(x_shape[0]) * int(iters),
+           stencil_solves=1, solve_s=float(seconds))
 
 
 def finalize() -> dict:
-    """Derived metrics from the raw counters; returns a copy.
+    """The job's counters, span log and launch counts; returns a copy.
 
     Drivers accumulate per solve chunk:
       cg_iters        device CG iterations (outer count, all passes)
       col_iters       sum over chunks of (batch columns x iterations)
-      spmv_bytes      fine-level SpMV traffic, spmv_bytes() per
-                      iteration
+      stencil_solves  batched solves on the stencil path (record_solve)
       solve_s         wall seconds inside the batched device solves
       fine_nnz        stored nonzeros of the fine operator (set once)
       cells           padded grid cells (set once)
@@ -98,22 +83,21 @@ def finalize() -> dict:
       pass_iters      inner CG iterations of each refinement pass of
                       the pair solves, in order
       device_name     torch.cuda.get_device_name() or "cpu" (set once)
+
+    and, read at the call:
+      spans           CSTIMER's span log of the job, [id, parent id,
+                      name, start_ns, end_ns] per span
+      spans_dropped   spans that started after the log held MAX_SPANS
+                      (benchmark/spans.py refuses such a log)
+      launches_bhw    [wrapper, B, H, W, launches] per kernel shape
+                      launched since cuda_stencil.reset_launch_counts()
     """
+    from .solve import cuda_stencil
+    from .timer import CSTIMER
     with _lock:
         d = dict(JOB)
-    nnz = d.get("fine_nnz", 0)
-    solve_s = d.get("solve_s", 0.0)
-    col_iters = d.get("col_iters", 0)
-    sb = d.get("spmv_bytes", 0)
-    if col_iters and nnz and solve_s:
-        # sustained nnz/s through the whole preconditioned solve
-        # (counting fine-level nnz once per CG iteration per column; the
-        # V-cycle's coarse work is the preconditioner's price, not nnz)
-        d["sustained_nnz_per_s"] = round(nnz * col_iters / solve_s, 0)
-    rate = device_bytes_per_s(d.get("device_name", "cpu"))
-    if sb and solve_s and rate:
-        # share of the solve spent streaming the fine-level SpMV if it
-        # ran at the card's memory speed-of-light
-        d["fine_spmv_pct_of_mem_roofline"] = round(
-            100.0 * (sb / rate) / solve_s, 1)
+    d["spans"] = CSTIMER.spans()
+    d["spans_dropped"] = CSTIMER.dropped
+    d["launches_bhw"] = [[name, b, h, w, n] for (name, b, h, w), n
+                         in sorted(cuda_stencil.LAUNCHES_BHW.items())]
     return d

@@ -26,8 +26,7 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ("metric", "value", "unit", "vs_baseline", "runs_s", "spread_s",
-          "cg_iters", "sustained_nnz_per_s", "mg_kernels",
-          "fine_spmv_pct_of_mem_roofline", "device", "card", "cpu_golden")
+          "cg_iters", "mg_kernels", "device", "card", "cpu_golden")
 
 
 def _verdict(fn, *a, **k):
@@ -195,7 +194,6 @@ def test_bench_torch_line_on_cpu():
     assert set(FIELDS) <= set(line), set(FIELDS) - set(line)
     assert line["metric"] == "pairwise_1Mcell_32pt_wall_clock"
     assert line["device"] == "cpu" and line["card"] is None
-    assert line["fine_spmv_pct_of_mem_roofline"] is None
     assert line["cpu_golden"] == "12/12"
     assert len(line["runs_s"]) == 2 and line["value"] == min(line["runs_s"])
     assert line["vs_baseline"] == pytest.approx(89.6 / line["value"])

@@ -261,11 +261,11 @@ def run_case(ini, solver, precision, device, route, outdir):
 
 def solved_on(st):
     """Where a job's solves ran, from its stats.finalize(): the stencil
-    path's device solves record their fine-level bytes, the host
+    path's device solves count themselves (stencil_solves), the host
     Cholesky its factor time, the general tier neither.  (A one-to-all
     job with included pairs or merged points sets up the stencil path
     and then, as the JAX package does, solves on the general tier.)"""
-    if "spmv_bytes" in st:
+    if "stencil_solves" in st:
         return "stencil path"
     return "host Cholesky" if "factor_s" in st else "general tier"
 
