@@ -191,6 +191,16 @@ Phases (any failure exits non-zero; nothing is caught):
      launched there; verdicts, CG passes per case and launches per
      shape printed.
 
+  21. (after phase 4) the CG loop's graph route against the eager loop
+     (stencil._cg_loop with _eager) on the bench job and its maps
+     recipe: after a warm run, a graph run, an eager run and a graph
+     run under torch.profiler, each with the counters zeroed just before
+     it; the same CG iterations per refinement pass, each pair solve's X
+     within 1e-6 relative per column, the same launches on both routes,
+     and in the profiled run the launches counted equal to the trace's
+     kernels of each name; walls, solve seconds, replays and captures
+     printed.
+
   20. (--cards only) bench_capacity_torch.py's row b: its 14336 x 14336
      job (205.5M cells, bench_capacity.py's recipe, 4 points, shortcut
      mode) on a mesh of every card (CS_FORCE_MESH=1, the default shape,
@@ -1885,6 +1895,125 @@ def phase_maps(cfg, gmap, r_shortcut):
          f"{rel:.3e} relative; cumulative map max {cum.max():.6g}")
 
 
+class swapped:
+    """mod.name replaced by make(the original) while active."""
+
+    def __init__(self, mod, name, make):
+        self.mod, self.name, self.make = mod, name, make
+
+    def __enter__(self):
+        self.real = getattr(self.mod, self.name)
+        setattr(self.mod, self.name, self.make(self.real))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+
+def graph_run(cfg, eager=False, profiled=False):
+    """One run of cfg on the card with the launch counters zeroed just
+    before it, on the CG loop's graph route or (eager) the eager loop.
+    Returns (seconds, stats.finalize(), launches, the X of every pair
+    solve in order, the profiler's kernel count per wrapper or None)."""
+    import circuitscape_tpu_torch as cst
+    from circuitscape_tpu_torch import stats
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    from circuitscape_tpu_torch.solve import stencil as st
+    from torch.profiler import ProfilerActivity, profile
+    xs = []
+
+    def keep(real):
+        def solve(*a, **k):
+            out = real(*a, **k)
+            xs.append(out[0].clone())
+            return out
+        return solve
+
+    def loop(real):
+        return (lambda *a, **k: real(*a, _eager=True, **k)) if eager else real
+
+    prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled else
+            None)
+    with swapped(st, "stencil_solve_pairs", keep), \
+            swapped(st, "_cg_loop", loop):
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        t = time.perf_counter()
+        if prof is not None:
+            prof.start()
+        cst.compute(cfg, device="cuda")
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.stop()
+        dt = time.perf_counter() - t
+    kernels = None
+    if prof is not None:
+        names = {k for k, _, _ in KERNELS}
+        kernels = {}
+        for e in prof.events():
+            m = re.search(r"::(\w+)_kernel\b", e.name)
+            if (e.device_type == torch.autograd.DeviceType.CUDA and m and
+                    m.group(1) in names):
+                kernels[m.group(1)] = kernels.get(m.group(1), 0) + 1
+    return (dt, stats.finalize(), {k: v for k, v in cs.LAUNCHES.items() if v},
+            xs, kernels)
+
+
+def phase_graph(cfg):
+    """Phase 21: the CG loop's graph route (one card's default) against
+    the eager loop (stencil._cg_loop's _eager), on the bench job and its
+    maps recipe: after a warm run, a graph run, an eager run, then a
+    graph run under torch.profiler.  The same CG iterations in every
+    refinement pass, every pair solve's X within 1e-6 relative per
+    column (2-norms), and in the profiled run the launches the wrappers
+    counted equal to the trace's kernels of each name.  Returns the
+    figures printed."""
+    maps = dict(cfg, output_file=os.path.join(
+        os.path.dirname(cfg["output_file"]), "graph_maps.out"),
+        write_cum_cur_map_only="True", write_max_cur_maps="True")
+    out = {}
+    for label, c in (("bench", cfg), ("maps", maps)):
+        graph_run(c)                    # warm
+        g_s, g_st, g_launch, g_xs, _ = graph_run(c)
+        e_s, e_st, e_launch, e_xs, _ = graph_run(c, eager=True)
+        p_s, _, p_launch, _, kernels = graph_run(c, profiled=True)
+        if g_st["pass_iters"] != e_st["pass_iters"]:
+            raise AssertionError(
+                f"graph route {label}: CG iterations per pass "
+                f"{g_st['pass_iters']}, eager loop {e_st['pass_iters']}")
+        if len(g_xs) != len(e_xs):
+            raise AssertionError(f"graph route {label}: {len(g_xs)} pair "
+                                 f"solves, eager loop {len(e_xs)}")
+        worst = 0.0
+        for xg, xe in zip(g_xs, e_xs):
+            n = xe.flatten(1).norm(dim=1)
+            d = (xg - xe).flatten(1).norm(dim=1)
+            worst = max(worst, float((d / torch.where(n == 0, 1.0, n))
+                                     .max()))
+        if not worst <= 1e-6:
+            raise AssertionError(f"graph route {label}: X differs from the "
+                                 f"eager loop's by {worst} relative")
+        if g_launch != e_launch or p_launch != kernels:
+            raise AssertionError(
+                f"graph route {label}: launches {g_launch}, eager loop "
+                f"{e_launch}; profiled run counted {p_launch}, the trace "
+                f"holds {kernels}")
+        its = g_st["cg_iters"]
+        out[label] = {
+            "graph_s": round(g_s, 4), "eager_s": round(e_s, 4),
+            "profiled_s": round(p_s, 4), "cg_iters": its,
+            "pass_iters": g_st["pass_iters"],
+            "graph_replays": g_st.get("graph_replays"),
+            "graph_captures": g_st.get("graph_captures"),
+            "graph_iter_pct": round(100.0 * g_st.get("graph_replays", 0) /
+                                    its, 2),
+            "x_rel_worst": worst, "launches": g_launch,
+            "solve_s": {"graph": round(g_st["solve_s"], 4),
+                        "eager": round(e_st["solve_s"], 4)}}
+        note(f"graph route {label}: {json.dumps(out[label])}")
+    return out
+
+
 class env_set:
     """Environment variables set (a value of None: unset) while active,
     restored after."""
@@ -3000,6 +3129,7 @@ def main(argv=()):
         r, launches_at = phase_main(cfg, rows, golden)
         note_per_job(level_times, launches_at)
         phase_maps(cfg, gmap, r)
+        phase_graph(cfg)
         phase_polygons(poly_cfg, r, level_times)
         phase_regions(make_regions_job(tempfile.mkdtemp(dir=d), 1000, 1000,
                                        8), r)

@@ -61,7 +61,9 @@ Each wrapper takes CPU tensors to its plain-torch version (the tests run
 there) and CUDA tensors to its kernel; on a CUDA tensor it launches the
 kernel or raises, never falls back.  LAUNCHES counts kernel launches per
 wrapper, LAUNCHES_AT per wrapper and (H, W) of the grid, LAUNCHES_BHW
-per wrapper and (B, H, W) of the block (plain calls do not count).
+per wrapper and (B, H, W) of the block (plain calls do not count); a
+replayed CUDA graph's launches count at each replay and not at its
+capture (solve/cg_graph.py).
 """
 
 from __future__ import annotations
@@ -124,6 +126,19 @@ def _launched(name: str, B: int, H: int, W: int):
     LAUNCHES[name] += 1
     LAUNCHES_AT[(name, H, W)] += 1
     LAUNCHES_BHW[(name, B, H, W)] += 1
+
+
+def count_launches(launches, times: int = 1):
+    """Add launches ({(wrapper, B, H, W): n}) times over to the three
+    counters: a replayed CUDA graph's kernels, which run without a call
+    of their wrappers (times=-1 takes back those a capture counted)."""
+    for (name, B, H, W), n in launches.items():
+        LAUNCHES[name] += times * n
+        for c, key in ((LAUNCHES_AT, (name, H, W)),
+                       (LAUNCHES_BHW, (name, B, H, W))):
+            c[key] += times * n
+            if not c[key]:
+                del c[key]
 
 
 def _nvcc() -> str:

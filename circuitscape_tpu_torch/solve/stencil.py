@@ -32,6 +32,7 @@ solvers hand back full tensors on the mesh's first device.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -622,6 +623,10 @@ def _colsum(a: torch.Tensor) -> torch.Tensor:
     return torch.sum(a, dim=(-2, -1))
 
 
+# the numpy float type of the loop's host-side scalars, by B's dtype
+_FTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
 class CGState(NamedTuple):
     """The JAX loop carry: device blocks and per-column sums, plus the
     host-side iteration count, stall detector and best residual (a numpy
@@ -658,18 +663,70 @@ def _cg_state_init(A: StencilOperator, B: torch.Tensor, prec=None,
                    prec_apply=None, pen=None, proj=None) -> CGState:
     Z = _make_prec_apply(A, prec, prec_apply, pen, proj)(B)
     R = B
-    ftype = {torch.float32: np.float32, torch.float64: np.float64}[B.dtype]
     # rn2 (per-column ||R||^2) rides the state so neither the loop
     # condition nor the stall detector recomputes the reduction
     return CGState(torch.zeros_like(B), R, Z, Z, _colsum(R * Z), 0,
-                   np.finfo(ftype).max, 0, _colsum(R * R))
+                   np.finfo(_FTYPE[B.dtype]).max, 0, _colsum(R * R))
 
 
-def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
+def _cg_stop(rn2, safe_bnorm, tol, out=None) -> torch.Tensor:
+    """The loop's stop quantities [worst relative residual, any column
+    above its target], stacked in worst's dtype (into out if given) so
+    the host fetches both in one sync."""
+    resnorm = torch.sqrt(rn2)
+    worst = torch.max(resnorm / safe_bnorm)
+    active = torch.any(resnorm > tol)
+    return torch.stack([worst, active.to(worst.dtype)], out=out)
+
+
+def _cg_iterate(step, fetch, k: int, best: np.floating, since: int,
+                k_stop: int, itmax: int):
+    """The host's side of the CG loop, shared by its two routes:
+    step(replace) runs iteration k on the device (replace: the periodic
+    true-residual replacement), fetch() returns the stop quantities of
+    the last iteration as [worst, active] (one sync).  Runs until
+    convergence, stall, divergence, itmax or k_stop, deciding in best's
+    float type as the JAX loop does (_cg_bounded, _cg_improved).
+    Returns (k, best, since)."""
+    ftype = type(best)
+
+    def stop_quantities():
+        worst_h, active_h = fetch()
+        return ftype(worst_h), active_h > 0
+
+    worst, active = stop_quantities()
+    while (k < itmax and k < k_stop and since < 50 and
+           _cg_bounded(worst, best) and active):
+        # periodic residual replacement: recompute the true residual so
+        # the f32 recurrence cannot drift away from it (van der Vorst);
+        # costs 1 extra matvec every 64 iterations
+        step((k + 1) % 64 == 0)
+        k += 1
+        worst, active = stop_quantities()
+        improved = _cg_improved(worst, best)
+        best = np.minimum(best, worst)
+        since = 0 if improved else since + 1
+    return k, best, since
+
+
+# the attribute of an operator that holds the graphs its loops keep
+GRAPH_SLOT = "_cg_graphs"
+
+
+def _graph_route(B) -> bool:
+    """Whether _cg_loop takes the graph route: B a plain tensor on a CUDA
+    device (one card's block).  CPU tensors and a mesh's MeshBlocks take
+    the eager loop."""
+    return isinstance(B, torch.Tensor) and B.device.type == "cuda"
+
+
+def _cg_loop(A: StencilOperator, B: torch.Tensor, state, tol,
              safe_bnorm, k_stop: int, itmax: int, prec=None,
-             prec_apply=None, pen=None, proj=None) -> CGState:
+             prec_apply=None, pen=None, proj=None, *,
+             _eager: bool = False) -> CGState:
     """Preconditioned CG until convergence, stall, itmax, or k_stop (the
-    per-call step budget of the chunked driver).
+    per-call step budget of the chunked driver), from state (a CGState;
+    None: _cg_state_init's).
 
     Every iteration computes its stop quantities on the device and
     fetches them in one host sync.  `since` detects a stall at the f32
@@ -677,29 +734,35 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
     past it (once the recurrence hits the floor, beta turns into
     amplified noise).  Both exits leave the outer f64 refinement to
     re-residualize.  Both guards compare in B's float type, as the JAX
-    loop does (_cg_bounded, _cg_improved).  The matvec + p.Ap of the
+    loop does (_cg_iterate).  The matvec + p.Ap of the
     body is one kernel (cuda_stencil.matvec_pap), as is the
     true-residual replacement every 64 iterations (cuda_stencil.matvec).
     Under a penalty field or a projector the body is the composite
     Pi (L + pen) p (the matvec kernel, the penalty term, poly_project)
     and a column dot, as in the JAX loop.  (On a mesh, matvec_pap is
     the sharded matvec and the shard-ordered column sums, as the JAX
-    package's mesh loop is.)"""
+    package's mesh loop is.)
+
+    A block on one card (_graph_route) takes the graph route: the same
+    operations in place on the route's buffers (_cg_step_), each body
+    captured once as a CUDA graph and replayed (solve/cg_graph.py); the
+    returned state's blocks are then those buffers, which the next loop
+    on the same operator writes over, and its Z is None.  CPU blocks, a
+    mesh's MeshBlocks and _eager (the tests' comparison) take the eager
+    loop below."""
     apply_M = _make_prec_apply(A, prec, prec_apply, pen, proj)
+    if not _eager and _graph_route(B):
+        from .cg_graph import graphs_for
+        return _cg_loop_static(
+            A, B, state, tol, safe_bnorm, k_stop, itmax, apply_M,
+            graphs_for(A, B, tol, safe_bnorm, prec, prec_apply, pen, proj),
+            pen, proj)
+    if state is None:
+        state = _cg_state_init(A, B, prec, prec_apply, pen, proj)
     X, R, Z, P, rz, k, best, since, rn2 = state
-    ftype = type(best)
 
-    def stop_quantities(rn2):
-        resnorm = torch.sqrt(rn2)
-        worst = torch.max(resnorm / safe_bnorm)
-        active = torch.any(resnorm > tol)
-        worst_h, active_h = torch.stack(
-            [worst, active.to(worst.dtype)]).tolist()
-        return ftype(worst_h), active_h > 0
-
-    worst, active = stop_quantities(rn2)
-    while (k < itmax and k < k_stop and since < 50 and
-           _cg_bounded(worst, best) and active):
+    def step(replace):
+        nonlocal X, R, Z, P, rz, rn2
         if pen is None and proj is None:
             AP, pAp = A.matvec_pap(P)
         else:
@@ -708,10 +771,7 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
         alpha = torch.where(pAp > 0, rz / torch.where(pAp == 0, 1.0, pAp),
                             0.0)
         X = X + alpha[:, None, None] * P
-        if (k + 1) % 64 == 0:
-            # periodic residual replacement: recompute the true residual
-            # so the f32 recurrence cannot drift away from it (van der
-            # Vorst); costs 1 extra matvec every 64 iterations
+        if replace:
             R = B - _apply_op(A, X, pen, proj)
         else:
             R = R - alpha[:, None, None] * AP
@@ -722,12 +782,125 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state: CGState, tol,
         P = Z + beta[:, None, None] * P
         rz = rz_new
         rn2 = _colsum(R * R)
-        k += 1
-        worst, active = stop_quantities(rn2)
-        improved = _cg_improved(worst, best)
-        best = np.minimum(best, worst)
-        since = 0 if improved else since + 1
+
+    k, best, since = _cg_iterate(
+        step, lambda: _cg_stop(rn2, safe_bnorm, tol).tolist(), k, best,
+        since, k_stop, itmax)
     return CGState(X, R, Z, P, rz, k, best, since, rn2)
+
+
+class _CGBuffers:
+    """The graph route's loop state, in storage that every iteration
+    writes in place (a replayed graph reads and writes the addresses it
+    was captured on): the right-hand side, targets and column norms the
+    loop reads (B, tol, safe), the iterate, residual and search direction
+    (X, R, P), their column sums rz = R.Z and rn2 = R.R, and the last
+    iteration's stop quantities (stop, _cg_stop).  Z, the preconditioned
+    residual, is not carried from one iteration to the next, so it has
+    no buffer: an iteration's Z lives in the graph's own memory.  B is
+    the right-hand side the buffers were made for: a later loop's is
+    copied into it, unless the caller wrote it there."""
+
+    def __init__(self, B: torch.Tensor, tol, safe_bnorm: torch.Tensor):
+        tol = torch.as_tensor(tol, device=B.device)
+        self.B = B      # the first loop's right-hand side, not a copy
+        self.X, self.R, self.P = (torch.empty_like(B) for _ in range(3))
+        self.tol = torch.empty_like(tol)
+        self.safe = torch.empty_like(safe_bnorm)
+        self.rz = B.new_empty(B.shape[0])
+        self.rn2 = B.new_empty(B.shape[0])
+        self.stop = B.new_empty(2, dtype=torch.promote_types(
+            B.dtype, safe_bnorm.dtype))
+
+    def load(self, B, tol, safe_bnorm, state, apply_M) -> None:
+        """Copy a loop's inputs and its state into the buffers, each
+        unless it is that buffer already, and set stop.  The state is a
+        CGState, or with state None _cg_state_init's (X = 0, R = B,
+        P = Z = M^-1 B, rz, rn2)."""
+        pairs = [(self.B, B), (self.tol, torch.as_tensor(tol)),
+                 (self.safe, safe_bnorm)]
+        if state is None:
+            self.X.zero_()
+            Z = apply_M(B)
+            pairs += [(self.R, B), (self.P, Z)]
+        else:
+            pairs += [(self.X, state.X), (self.R, state.R),
+                      (self.P, state.P), (self.rz, state.rz),
+                      (self.rn2, state.rn2)]
+        for buf, t in pairs:
+            if t is not buf:
+                buf.copy_(t)
+        if state is None:
+            torch.sum(self.R * Z, dim=(-2, -1), out=self.rz)
+            torch.sum(self.R * self.R, dim=(-2, -1), out=self.rn2)
+        _cg_stop(self.rn2, self.safe, self.tol, out=self.stop)
+
+
+def _cg_step_(A: StencilOperator, s: _CGBuffers, replace: bool, apply_M,
+              pen=None, proj=None) -> None:
+    """One iteration of _cg_loop's body on s, in place: the same
+    operations in the same order, with X, R, P, rz and rn2 written into
+    their buffers (the same bits as the eager loop) and the stop
+    quantities into s.stop.  replace: the true-residual replacement
+    R = B - A X."""
+    if pen is None and proj is None:
+        AP, pAp = A.matvec_pap(s.P)
+    else:
+        AP = _apply_op(A, s.P, pen, proj)
+        pAp = _colsum(s.P * AP)
+    alpha = torch.where(pAp > 0, s.rz / torch.where(pAp == 0, 1.0, pAp),
+                        0.0)
+    s.X.add_(alpha[:, None, None] * s.P)
+    if replace:
+        torch.sub(s.B, _apply_op(A, s.X, pen, proj), out=s.R)
+    else:
+        s.R.sub_(alpha[:, None, None] * AP)
+    del AP
+    Z = apply_M(s.R)
+    rz_new = _colsum(s.R * Z)
+    beta = torch.where(s.rz > 0,
+                       rz_new / torch.where(s.rz == 0, 1.0, s.rz), 0.0)
+    torch.add(Z, beta[:, None, None] * s.P, out=s.P)
+    s.rz.copy_(rz_new)
+    torch.sum(s.R * s.R, dim=(-2, -1), out=s.rn2)
+    _cg_stop(s.rn2, s.safe, s.tol, out=s.stop)
+
+
+@contextlib.contextmanager
+def _graph_scope(A):
+    """The graph route's graphs kept on A (cg_graph.graphs_for) last
+    until the end of this block, one solve: its refinement passes share
+    them, and they go, with their buffers and memory pool, when it
+    returns."""
+    try:
+        yield
+    finally:
+        A.__dict__.pop(GRAPH_SLOT, None)
+
+
+def _cg_loop_static(A, B, state, tol, safe_bnorm, k_stop: int, itmax: int,
+                    apply_M, graphs, pen=None, proj=None) -> CGState:
+    """_cg_loop's graph route: the loop's state in graphs.bufs (a
+    _CGBuffers), each iteration graphs.run on _cg_step_ (a replayed
+    graph once captured, solve/cg_graph.py), the host's decisions those
+    of the eager loop (_cg_iterate).  Records the iterations replayed
+    and the graphs captured (stats graph_replays, graph_captures).  The
+    returned state has no Z (_CGBuffers)."""
+    s = graphs.bufs
+    s.load(B, tol, safe_bnorm, state, apply_M)
+    k, best, since = ((0, np.finfo(_FTYPE[B.dtype]).max, 0) if state is None
+                      else (state.k, state.best, state.since))
+    replays, captures = graphs.replays, graphs.captures
+
+    def step(replace):
+        graphs.run(replace,
+                   lambda: _cg_step_(A, s, replace, apply_M, pen, proj))
+
+    k, best, since = _cg_iterate(step, s.stop.tolist, k, best, since,
+                                 k_stop, itmax)
+    stats.record(graph_replays=graphs.replays - replays,
+                 graph_captures=graphs.captures - captures)
+    return CGState(s.X, s.R, None, s.P, s.rz, k, best, since, s.rn2)
 
 
 def _true_relres(A, B, X, safe_bnorm, proj=None):
@@ -743,8 +916,7 @@ def _cg_tol(rtol, bnorm: torch.Tensor) -> torch.Tensor:
     float is weakly typed and takes bnorm's dtype; a numpy scalar or
     array promotes with it (np.float64 or a float64 array: float64).
     The loop's `resnorm > tol` then compares in float64, as JAX's does."""
-    ftype = {torch.float32: np.float32, torch.float64: np.float64}[
-        bnorm.dtype]
+    ftype = _FTYPE[bnorm.dtype]
     dt = (np.dtype(ftype) if type(rtol) in (float, int) else
           np.promote_types(np.asarray(rtol).dtype, ftype))
     rt = np.maximum(np.asarray(rtol, dt), dt.type(32 * np.finfo(ftype).eps))
@@ -767,11 +939,11 @@ def stencil_cg(A: StencilOperator, B: torch.Tensor, rtol=1e-6,
     safe_bnorm = torch.where(bnorm == 0, 1.0, bnorm)
     tol = _cg_tol(rtol, bnorm)
 
-    state = _cg_state_init(A, B, prec, prec_apply, pen, proj)
-    k_prev = -1
+    state, k_prev = None, -1
     while True:
-        state = _cg_loop(A, B, state, tol, safe_bnorm, state.k + chunk,
-                         itmax, prec, prec_apply, pen, proj)
+        state = _cg_loop(A, B, state, tol, safe_bnorm,
+                         (0 if state is None else state.k) + chunk, itmax,
+                         prec, prec_apply, pen, proj)
         k = state.k
         resnorm = torch.sqrt(state.rn2)
         if (k >= itmax or k == k_prev or
@@ -849,14 +1021,17 @@ def _solve_pairs_fused(S64, A_lo, prec, prec_apply, sc, dc, point_cells,
     R = B64
     rel = torch.where(bnorm > 0, math.inf, 0.0)
     iters = npass = 0
+    R32 = None
     while npass < MAX_PASSES and bool(torch.any(rel > rtol)):
         with CSTIMER.span("refinement pass"):
-            R32 = R.to(torch.float32)
+            # on one card every pass writes its right-hand side into the
+            # first pass's block, the graph route's buffer B
+            R32 = (R32.copy_(R) if R32 is not None and _graph_route(R32)
+                   else R.to(torch.float32))
             tol32 = torch.maximum(
                 tol64, INNER_RTOL * torch.sqrt(_colsum(R32 * R32))
             ).to(torch.float32)
-            st = _cg_state_init(A_lo, R32, prec, prec_apply, None, proj)
-            st = _cg_loop(A_lo, R32, st, tol32, safe32, kcap, kcap, prec,
+            st = _cg_loop(A_lo, R32, None, tol32, safe32, kcap, kcap, prec,
                           prec_apply, None, proj)
             X = X + st.X.to(torch.float64)
             R = B64 - _apply_op(S64, X, None, proj)
@@ -912,30 +1087,31 @@ def _fused_pair_solve(S64, src_cells, dst_cells, point_cells, rtol, itmax,
     else:
         A_lo = _to_dtype(S64, torch.float32)
 
-    X, rel_d, total_iters = _solve_pairs_fused(
-        S64, A_lo, prec, prec_apply, sc, dc, pc, rtol, itmax, proj)
-    rel = rel_d.cpu().numpy()
+    with _graph_scope(A_lo):
+        X, rel_d, total_iters = _solve_pairs_fused(
+            S64, A_lo, prec, prec_apply, sc, dc, pc, rtol, itmax, proj)
+        rel = rel_d.cpu().numpy()
 
-    if not np.all(rel[:nb] <= rtol) and max_refine > 2:
-        B = _pairs_rhs(sc, dc, H, W, b_pad)
-        if proj is not None:
-            B = poly_project(proj, B)
-        B = S64.layout(B)
-        bnorm = torch.sqrt(_colsum(B * B))
-        safe_bnorm = torch.where(bnorm == 0, 1.0, bnorm).cpu().numpy()
-        R = B - _apply_op(S64, X, None, proj)
-        for _ in range(max_refine - 2):
-            inner = np.clip(rtol / np.where(rel == 0, 1.0, rel),
-                            INNER_RTOL, 0.05)
-            dX, _, it = stencil_cg(A_lo, R.to(torch.float32), inner,
-                                   itmax=itmax, prec=prec,
-                                   prec_apply=prec_apply, proj=proj)
-            X = X + dX.to(torch.float64)
+        if not np.all(rel[:nb] <= rtol) and max_refine > 2:
+            B = _pairs_rhs(sc, dc, H, W, b_pad)
+            if proj is not None:
+                B = poly_project(proj, B)
+            B = S64.layout(B)
+            bnorm = torch.sqrt(_colsum(B * B))
+            safe_bnorm = torch.where(bnorm == 0, 1.0, bnorm).cpu().numpy()
             R = B - _apply_op(S64, X, None, proj)
-            rel = torch.sqrt(_colsum(R * R)).cpu().numpy() / safe_bnorm
-            total_iters += int(it)
-            if np.all(rel[:nb] <= rtol):
-                break
+            for _ in range(max_refine - 2):
+                inner = np.clip(rtol / np.where(rel == 0, 1.0, rel),
+                                INNER_RTOL, 0.05)
+                dX, _, it = stencil_cg(A_lo, R.to(torch.float32), inner,
+                                       itmax=itmax, prec=prec,
+                                       prec_apply=prec_apply, proj=proj)
+                X = X + dX.to(torch.float64)
+                R = B - _apply_op(S64, X, None, proj)
+                rel = torch.sqrt(_colsum(R * R)).cpu().numpy() / safe_bnorm
+                total_iters += int(it)
+                if np.all(rel[:nb] <= rtol):
+                    break
     X = S64.gather(X)
     Vp = _extract_point_voltages(X, sc, pc)[0].cpu().numpy()
     return X, Vp, rel, total_iters
@@ -1022,22 +1198,23 @@ def stencil_solve_advanced_batch(S64: StencilOperator, src_cells, src_vals,
     R = B_rhs
     total_iters = 0
     rel = np.full(B_rhs.shape[0], np.inf)
-    for pass_i in range(max_refine):
-        # floor-safe inner tolerances: never ask an f32 pass for more
-        # than INNER_RTOL relative
-        inner = max(rtol, INNER_RTOL) if pass_i == 0 else np.clip(
-            rtol / np.where(rel == 0, 1.0, rel), INNER_RTOL, 0.05)
-        dX, _, it = stencil_cg(A_lo, R.to(torch.float32), inner,
-                               itmax=itmax, prec=prec,
-                               prec_apply=prec_apply,
-                               pen=None if pen_in_prec else pen32,
-                               proj=proj)
-        X = X + dX.to(torch.float64)
-        R = B_rhs - _apply_op(S64, X, pen64, proj)
-        rel = torch.sqrt(_colsum(R * R)).cpu().numpy() / safe_bnorm
-        total_iters += int(it)
-        if np.all(rel <= rtol):
-            break
+    with _graph_scope(A_lo):
+        for pass_i in range(max_refine):
+            # floor-safe inner tolerances: never ask an f32 pass for more
+            # than INNER_RTOL relative
+            inner = max(rtol, INNER_RTOL) if pass_i == 0 else np.clip(
+                rtol / np.where(rel == 0, 1.0, rel), INNER_RTOL, 0.05)
+            dX, _, it = stencil_cg(A_lo, R.to(torch.float32), inner,
+                                   itmax=itmax, prec=prec,
+                                   prec_apply=prec_apply,
+                                   pen=None if pen_in_prec else pen32,
+                                   proj=proj)
+            X = X + dX.to(torch.float64)
+            R = B_rhs - _apply_op(S64, X, pen64, proj)
+            rel = torch.sqrt(_colsum(R * R)).cpu().numpy() / safe_bnorm
+            total_iters += int(it)
+            if np.all(rel <= rtol):
+                break
     return S64.gather(X), rel[:nb_in], total_iters
 
 

@@ -40,7 +40,7 @@ def reset():
 
 
 _ACCUM = {"cg_iters", "col_iters", "stencil_solves", "solve_s",
-          "factor_s"}
+          "factor_s", "graph_replays", "graph_captures"}
 
 
 def record(**kw):
@@ -82,6 +82,9 @@ def finalize() -> dict:
       batch_width     columns per chunk of the shortcut pair solve
       pass_iters      inner CG iterations of each refinement pass of
                       the pair solves, in order
+      graph_replays   CG iterations run as a replayed CUDA graph (the
+                      stencil loop's graph route, solve/cg_graph.py)
+      graph_captures  CUDA graphs that route captured
       device_name     torch.cuda.get_device_name() or "cpu" (set once)
 
     and, read at the call:

@@ -19,6 +19,11 @@ CUDA card; exit 2 without one) and, from its jobs' span logs
                    this host (a section timed 20000 times, empty)
   refused_jobs     jobs left out of all of the above because their log
                    overflowed its bound (stats "spans_dropped" above 0)
+  graph            each job's CG iterations (stats "cg_iters"), the
+                   CUDA graphs the loop captured and the iterations it
+                   replayed ("graph_captures", "graph_replays"; None
+                   where the program has no graph route) and the
+                   replayed share in percent
 
 Prints the report as one JSON line and writes it to --out.  The result
 line of the run is in the report too (its per-layer metrics).
@@ -117,6 +122,16 @@ def span_cost_us(n: int = 20000) -> float:
     return dt / n * 1e6
 
 
+def graph_share(st: dict) -> dict:
+    """A job's CG iterations, graph captures and replays, and the
+    replayed share of its iterations in percent."""
+    its, replays = st.get("cg_iters"), st.get("graph_replays")
+    return {"cg_iters": its, "graph_captures": st.get("graph_captures"),
+            "graph_replays": replays,
+            "replay_pct": (100.0 * replays / its
+                           if its and replays is not None else None)}
+
+
 def report(run) -> dict:
     from benchmark import spans as sp
     busy = sp.Busy(run.trace.device)
@@ -146,6 +161,7 @@ def report(run) -> dict:
         "job_s": [j.seconds for j in whole],
         "spans_per_job": [len(j.stats["spans"]) for j in whole],
         "refused_jobs": len(run.done) - len(whole),
+        "graph": [graph_share(j.stats) for j in whole],
         "span_cost_us": span_cost_us(),
     }
 
