@@ -76,9 +76,11 @@ Phases (any failure exits non-zero; nothing is caught):
      off) and the all-to-one job (cumulative and per-point current maps):
      one run each with the counters zeroed just before it; one-to-all
      results positive, finite and at most the bench job's smallest
-     resistance from the same point; all-to-one results 0 and the
-     cumulative map finite, >= 0, > 0 somewhere; in both, matvec at
-     1024^2 every CG iteration and matvec_pap never; per_job lines;
+     resistance from the same point, every kernel launched and
+     matvec_pap at 1024^2 every CG iteration (its columns solve the
+     penalty-baked operator); all-to-one results 0 and the cumulative
+     map finite, >= 0, > 0 somewhere, matvec at 1024^2 every CG
+     iteration and matvec_pap never; per_job lines;
   9. run 256 x 256 jobs of the same recipes on "cuda" and on "cpu": the
      shortcut job (resistances agree to 1e-5 relative) and an 8-point
      maps job with per-pair current and voltage maps and the max map
@@ -1140,8 +1142,10 @@ class record_passes:
     """Records the CG iteration count of every inner pass (a call of
     mod.<fn>: by default this package's stencil_cg; with mod set to a
     solve/dispatch module and fn="cg_batched", the general tier's ELL
-    CG) while active, and with keep=True the pass's arguments.  The
-    port's tests use it on both packages."""
+    CG) while active, and with keep=True the pass's arguments, each
+    tensor among them copied as the pass received it (a caller may write
+    the next pass's right-hand side into the same block).  The port's
+    tests use it on both packages."""
 
     def __init__(self, keep=False, mod=None, fn="stencil_cg"):
         self.keep, self.mod, self.fn = keep, mod, fn
@@ -1154,10 +1158,10 @@ class record_passes:
         self.real = getattr(self.mod, self.fn)
 
         def rec(*a, **k):
+            if self.keep:
+                self.calls.append(_snapshot((a, k)))
             out = self.real(*a, **k)
             self.iters.append(int(out[2]))
-            if self.keep:
-                self.calls.append((a, k))
             return out
         setattr(self.mod, self.fn, rec)
         return self
@@ -1171,6 +1175,18 @@ class record_passes:
         and projector; returns the iteration counts."""
         return [int(self.real(*_cpu(a), **_cpu(k))[2])
                 for a, k in self.calls]
+
+
+def _snapshot(x):
+    """Tensors, and the tuples, lists and dicts holding them, copied;
+    anything else (operators, hierarchies, projectors) as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_snapshot(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _snapshot(v) for k, v in x.items()}
+    return x
 
 
 def _cpu(x):
@@ -1277,9 +1293,8 @@ def phase_advanced(cfg, gmap, src, cond):
 
 
 def check_unfused(label, launches, launches_at, iters):
-    """The one-to-all and all-to-one CG body: the matvec kernel on the
-    1024^2 level every iteration, matvec_pap never; every other kernel
-    launched."""
+    """The all-to-one CG body: the matvec kernel on the 1024^2 level
+    every iteration, matvec_pap never; every other kernel launched."""
     fine = launches_at.get(("matvec", *MAIN_HW), 0)
     if fine < iters or launches["matvec_pap"] != 0:
         raise AssertionError(f"{label}: matvec at {MAIN_HW} launched {fine} "
@@ -1295,7 +1310,10 @@ def phase_onetoall(cfg, r_plain, level_times):
     points in one batch, maps off, one run with the counters zeroed just
     before it.  Each result (point i against all others grounded) is
     positive, finite and at most min over j of the bench job's R[i, j]
-    (grounding the other points shorts them together)."""
+    (grounding the other points shorts them together).  The columns
+    solve the penalty-baked operator itself (the harmonic of each
+    point): every kernel launched, matvec_pap on the 1024^2 level every
+    CG iteration."""
     cfg = dict(cfg, scenario="one-to-all", output_file=os.path.join(
         os.path.dirname(cfg["output_file"]), "o2a.out"))
     r, dt, launches, launches_at, iters, _ = run_job(cfg, "one-to-all job")
@@ -1307,19 +1325,24 @@ def phase_onetoall(cfg, r_plain, level_times):
             np.all(res <= bound * (1 + 1e-4))):
         raise AssertionError(f"one-to-all job: results {res} against the "
                              f"pairwise bound {bound}")
-    fine = check_unfused("one-to-all job", launches, launches_at, iters)
+    check_launched(launches, "one-to-all job")
+    fine = launches_at.get(("matvec_pap", *MAIN_HW), 0)
+    if fine < iters:
+        raise AssertionError(f"one-to-all job: matvec_pap at {MAIN_HW} "
+                             f"launched {fine} times for {iters} CG "
+                             "iterations")
     note(f"one-to-all job: {dt:.3f} s, {iters} CG iterations, result / "
          f"min pairwise R {float((res / bound).min()):.4f}.."
-         f"{float((res / bound).max()):.4f}, matvec at "
-         f"{MAIN_HW[0]}x{MAIN_HW[1]} {fine} launches, matvec_pap 0")
+         f"{float((res / bound).max()):.4f}, matvec_pap at "
+         f"{MAIN_HW[0]}x{MAIN_HW[1]} {fine} launches")
     note_per_job(level_times, launches_at, " one-to-all job")
 
 
 def phase_alltoone(cfg, gmap, level_times):
     """The all-to-one job at full width: 32 points with the cumulative
     current map (write_cum_cur_map_only and write_cur_maps; the device
-    path then writes the 32 per-point maps too, as the JAX package's
-    does), one run with the counters zeroed just before it.  Results all
+    path then writes no map per point, where the JAX package's writes
+    the 32), one run with the counters zeroed just before it.  Results all
     0; the cumulative map finite, >= 0 on active cells, > 0 somewhere."""
     d = os.path.dirname(cfg["output_file"])
     cfg = dict(cfg, scenario="all-to-one", write_cum_cur_map_only="True",

@@ -28,6 +28,14 @@ from .advanced import (AdvancedProblem, _get_sources_and_grounds,
 from .flags import get_raster_flags
 from .raster import _grid_components, prune_points
 
+# the harmonic one-to-all columns' stop (_onetoall_device_fast): the
+# unit-current answer's residual at a tenth of consts.CG_RTOL, within 6
+# float64 passes.  At CG_RTOL itself the 1M-cell TestArea1 jobs' current
+# maps missed a float64 reference by up to 5.4e-5 of their max (30-50
+# times the residual); at a tenth, reached in 4-5 passes, by 6e-6.
+HARMONIC_RTOL = 0.1 * consts.CG_RTOL
+HARMONIC_PASSES = 6
+
 
 def raster_one_to_all(cfg, dtype, device):
     """src/raster/onetoall.jl:1-11."""
@@ -49,9 +57,21 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
 
     One-to-all: column i injects point i's strength and grounds every
     other focal point by a penalty.  The penalty at every focal cell is
-    baked into the MG hierarchy, and each column solves the bare float32
-    Laplacian plus its own penalty field (so the CG body is the matvec
-    kernel, the penalty term and a column dot).
+    baked into the MG hierarchy, so the hierarchy's operator grounds
+    point i too: column i solves it for the harmonic u_i that is 1 at
+    point i and 0 at every other point (its right-hand side the weights
+    of the edges into point i), and the unit-current solution is
+    u_i / I_i, I_i the current u_i draws out of point i.  Every column
+    solves the hierarchy's own operator (the CG body the fused
+    matvec_pap kernel), and its passes stop where the unit-current
+    answer's residual, u_i's over I_i, is HARMONIC_RTOL.  Solving the
+    column's own operator, the bare Laplacian plus a penalty at the
+    other points, under a hierarchy that grounds point i leaves the
+    point's voltage an eigenvalue ~1e-8 of the rest to the float32 CG,
+    whose refinement passes then stall at 1M cells (the JAX package's
+    device path does that).  With polygons, and on a mesh (no penalty in
+    the hierarchy), each column solves its own operator with its own
+    penalty field, as the JAX package does.
 
     All-to-one grounds a single, different cell per column, which no
     shared penalty conditions well: each column solves the balanced
@@ -61,7 +81,11 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
     limit.  Its zero penalty field is still passed, as the JAX package
     does, so its CG body is the unfused one too.
 
-    Columns go in byte-budgeted chunks.  Returns the (point, result)
+    Columns go in byte-budgeted chunks.  Under write_cum_cur_map_only
+    no map per point is written or copied to the host, as the pairwise
+    paths write none (out.write_cur_maps); the JAX package's device path
+    and the per-point loop (advanced_kernel) write them.
+    Returns the (point, result)
     matrix, or None where the JAX package takes its general path:
     included pairs, repeated point ids or points merged into one node,
     solvers other than cg+amg, grids below CS_ONETOALL_DEVICE_MIN
@@ -72,7 +96,7 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
     from ..solve.prepare import (prepare_stencil_solver_from_gmap,
                                  prepare_stencil_solver_from_gmap_pen)
     from ..solve.stencil import (_to_dtype, advanced_ground_penalty,
-                                 build_poly_projector,
+                                 build_poly_projector, stencil_edges_at,
                                  stencil_node_currents,
                                  stencil_solve_advanced_batch)
 
@@ -111,9 +135,6 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
         else:
             S64, prec, geomg_apply, _ = prepare_stencil_solver_from_gmap(
                 gmap, flags.avg_res, flags.four_neighbors, device)
-    # each one-to-all column's operator is the bare Laplacian plus its own
-    # penalty field: prec.levels[0].A holds the shared penalty already
-    A_lo = _to_dtype(S64, torch.float32) if bake_pen else None
     dev = S64.diag.device
     Hp, Wp = S64.shape
 
@@ -154,6 +175,19 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
     if use_var:
         strength = strengths[:npts, 1].astype(np.float64)
     penalty = advanced_ground_penalty(S64) if one_to_all else 0.0
+    # one-to-all columns on the hierarchy's own operator (the harmonic
+    # u_i); with polygons, each column's operator is the bare Laplacian
+    # plus its own penalty field (prec.levels[0].A holds the shared one)
+    harmonic = bake_pen and proj is None
+    A_lo = (_to_dtype(S64, torch.float32) if bake_pen and not harmonic
+            else None)
+    if harmonic:
+        far, w_at = stencil_edges_at(S64, cells)
+        focal = np.zeros((Hp, Wp), bool)
+        focal[cells[:, 0], cells[:, 1]] = True
+        # u_i's right-hand side: the edges into point i, at cells that
+        # are not focal points (those are grounded)
+        rhs_w = np.where(focal[far[..., 0], far[..., 1]], 0.0, w_at)
 
     active = np.ones(npts, bool)
     for i in range(npts):
@@ -164,6 +198,11 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
 
     res = np.full(npts, -1.0)
     cum = out.initialize_cum_maps(gmap, of.write_max_cur_maps)
+    # currents feed the cumulative (and max) maps whenever either map
+    # option is on; a map per point only without write_cum_cur_map_only,
+    # the rule of out.write_cur_maps
+    need_cur = of.write_cur_maps or of.write_cum_cur_map_only
+    point_maps = of.write_cur_maps and not of.write_cum_cur_map_only
     idx_active = np.nonzero(active)[0]
 
     if not one_to_all:
@@ -191,12 +230,16 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
     for s0 in range(0, idx_active.size, step):
         sel = idx_active[s0:s0 + step]
         bsz = len(sel)
-        src_cells = np.zeros((bsz, npts, 2), np.int64)
-        src_vals = np.zeros((bsz, npts), np.float64)
+        nsrc = far.shape[1] if harmonic else npts
+        src_cells = np.zeros((bsz, nsrc, 2), np.int64)
+        src_vals = np.zeros((bsz, nsrc), np.float64)
         gnd_cells = np.tile(cells[None], (bsz, 1, 1))
         gnd_vals = np.zeros((bsz, npts), np.float64)
         for k, i in enumerate(sel):
-            if one_to_all:
+            if harmonic:
+                src_cells[k], src_vals[k] = far[i], rhs_w[i]
+                gnd_vals[k] = penalty
+            elif one_to_all:
                 src_cells[k, 0] = cells[i]
                 src_vals[k, 0] = strength[i]
                 gnd_vals[k] = np.where(arange != i, penalty, 0.0)
@@ -208,13 +251,31 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
                 vals[i] = -vals.sum()      # balanced floating injection
                 src_vals[k] = vals
 
+        own = torch.as_tensor(cells[sel], device=dev)
+        ks = torch.arange(bsz, device=dev)
+        drawn_by = None
+        if harmonic:
+            far_k = torch.as_tensor(far[sel], device=dev)
+            w_k = torch.as_tensor(w_at[sel], device=dev)
+
+            def drawn_by(X, far_k=far_k, w_k=w_k, ks=ks):
+                # the current u_i + e_i draws out of point i along its
+                # edges: the unit-current answer's residual is u_i's
+                # over it
+                u = X[ks[:, None], far_k[..., 0], far_k[..., 1]]
+                return torch.sum(w_k * (1.0 - u), dim=1).cpu().numpy()
+
         t0 = time.perf_counter()
         try:
             with CSTIMER("batched pair solve"):
                 X, rel, iters = stencil_solve_advanced_batch(
                     S64, src_cells, src_vals, gnd_cells, gnd_vals,
-                    rtol=consts.CG_RTOL, itmax=consts.CG_ITMAX, prec=prec,
-                    prec_apply=geomg_apply, proj=proj, A_lo=A_lo)
+                    rtol=HARMONIC_RTOL if harmonic else consts.CG_RTOL,
+                    itmax=consts.CG_ITMAX, prec=prec,
+                    prec_apply=geomg_apply,
+                    max_refine=HARMONIC_PASSES if harmonic else 4,
+                    proj=proj, pen_in_prec=harmonic, A_lo=A_lo,
+                    rel_to=drawn_by)
         except Exception as e:
             reraise_if_device_oom(e, Hp * Wp, bsz)
         stats.record_solve(tuple(X.shape), iters, time.perf_counter() - t0)
@@ -223,8 +284,15 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
                 f"one-to-all device solve residual {float(rel.max())} "
                 f"exceeds tolerance {consts.RESIDUAL_GATE}")
 
-        own = torch.as_tensor(cells[sel], device=dev)
-        ks = torch.arange(bsz, device=dev)
+        if harmonic:
+            # u_i = 1 at its point; the current it draws is its energy
+            # u^T L u (second order in the solve's error, where the sum
+            # along the point's edges is first order); the point's
+            # strength times u_i / I_i
+            X[ks, own[:, 0], own[:, 1]] += 1.0
+            drawn = torch.sum(X * S64.matvec(X), dim=(1, 2))
+            X.mul_((torch.as_tensor(strength[sel], device=dev) /
+                    drawn)[:, None, None])
         if not one_to_all:
             # pin each column's ground cell to 0 within its component (a
             # constant shift changes no flow; other components keep the
@@ -242,22 +310,22 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
             else:
                 res[i] = 0.0
 
-        if of.write_cur_maps or of.write_cum_cur_map_only:
+        if need_cur:
             with CSTIMER("node currents + reduce"):
                 ncur = stencil_node_currents(S64, X, proj=proj)
-                if of.write_cur_maps:
-                    cum.cum_curr += torch.sum(ncur, dim=0).cpu().numpy()[
-                        :H, :W]
-                    if of.write_max_cur_maps:
-                        np.maximum(cum.max_curr,
-                                   torch.amax(ncur, dim=0).cpu().numpy()[
-                                       :H, :W], out=cum.max_curr)
-                ncur_h = ncur.cpu().numpy()
-            with CSTIMER("write maps"):
-                for k, i in enumerate(sel):
-                    out.write_grid(ncur_h[k].astype(dtype)[:H, :W],
-                                   f"_{int(pts[i])}", cfg, hbmeta,
-                                   cellmap=gmap)
+                cum.cum_curr += torch.sum(ncur, dim=0).cpu().numpy()[:H, :W]
+                if of.write_max_cur_maps:
+                    np.maximum(cum.max_curr,
+                               torch.amax(ncur, dim=0).cpu().numpy()[:H, :W],
+                               out=cum.max_curr)
+                if point_maps:
+                    ncur_h = ncur.cpu().numpy()
+            if point_maps:
+                with CSTIMER("write maps"):
+                    for k, i in enumerate(sel):
+                        out.write_grid(ncur_h[k].astype(dtype)[:H, :W],
+                                       f"_{int(pts[i])}", cfg, hbmeta,
+                                       cellmap=gmap)
         if of.write_volt_maps:
             X_h = X.cpu().numpy()
             with CSTIMER("write maps"):
@@ -266,7 +334,7 @@ def _onetoall_device_fast(data, flags, cfg, dtype, device):
                                    f"_{int(pts[i])}", cfg, hbmeta,
                                    cellmap=gmap, voltage=True)
 
-    if of.write_cur_maps or of.write_cum_cur_map_only:
+    if need_cur:
         with CSTIMER("write cumulative current maps"):
             out.write_cum_maps(cum, gmap, cfg, hbmeta, of.write_max_cur_maps,
                                of.write_cum_cur_map_only)

@@ -934,7 +934,8 @@ def stencil_cg(A: StencilOperator, B: torch.Tensor, rtol=1e-6,
     from the true residual.
 
     B: (nrhs, H, W) right-hand sides; rtol a float or a per-column
-    array.  Returns (X, relres (nrhs,), iters)."""
+    array.  A penalty field's iterations count in stats pen_iters.
+    Returns (X, relres (nrhs,), iters)."""
     bnorm = torch.sqrt(_colsum(B * B))
     safe_bnorm = torch.where(bnorm == 0, 1.0, bnorm)
     tol = _cg_tol(rtol, bnorm)
@@ -950,6 +951,8 @@ def stencil_cg(A: StencilOperator, B: torch.Tensor, rtol=1e-6,
                 not bool(torch.any(resnorm > tol))):
             break
         k_prev = k
+    if pen is not None:
+        stats.record(pen_iters=state.k)
     relres = _true_relres(A, B, state.X, safe_bnorm, proj)
     return state.X, relres, state.k
 
@@ -1134,7 +1137,8 @@ def stencil_solve_advanced_batch(S64: StencilOperator, src_cells, src_vals,
                                  gnd_cells, gnd_vals, rtol=1e-6,
                                  itmax=100_000, prec=None, prec_apply=None,
                                  max_refine=4, proj=None,
-                                 pen_in_prec=False, A_lo=None):
+                                 pen_in_prec=False, A_lo=None,
+                                 rel_to=None):
     """Batched advanced-mode solve: (G + diag(g)) v = s per column.
 
     Each column has its own sources (cells + strengths) and grounds
@@ -1154,10 +1158,18 @@ def stencil_solve_advanced_batch(S64: StencilOperator, src_cells, src_vals,
     body the fused matvec_pap).  A_lo: an explicit f32 inner operator:
     one-to-all bakes the shared penalty (every focal cell) into the
     hierarchy, but each column's operator is the bare Laplacian plus its
-    own penalty field.
+    own penalty field.  rel_to: a function of the float64 iterate (the
+    operator's layout) giving the norm (np, B) each column's residual is
+    relative to, in place of its right-hand side's, for the passes'
+    stop and the returned rel: one-to-all's harmonic columns give the
+    current each draws, so that rel is the unit-current answer's.
 
     On a mesh the batch pads to a multiple of its 'batch' axis (zero
     columns: rel = 0), and X comes back whole on its first device.
+
+    Span log (CSTIMER.span): "penalty fields" around the scatter and
+    layout of the source and ground fields, and one "refinement pass"
+    per float64 pass, as _solve_pairs_fused logs its passes.
 
     Returns (X (f64, (B, H, W)), rel (np, B), iters)."""
     H, W = S64.shape
@@ -1177,14 +1189,16 @@ def stencil_solve_advanced_batch(S64: StencilOperator, src_cells, src_vals,
                                               device=dev),
                               torch.as_tensor(np.asarray(vals, np.float64),
                                               device=dev), H, W)
-    B_rhs = field(src_cells, src_vals)
-    pen64 = field(gnd_cells, gnd_vals)
-    if proj is not None:
-        # collapsed-system RHS (per-cell values already sum to each
-        # merged node's total; Pi is applied for arbitrary callers)
-        B_rhs = poly_project(proj, B_rhs)
-    B_rhs, pen64 = S64.layout(B_rhs), S64.layout(pen64)
-    pen32 = pen64.to(torch.float32)
+    with CSTIMER.span("penalty fields"):
+        B_rhs = field(src_cells, src_vals)
+        pen64 = field(gnd_cells, gnd_vals)
+        if proj is not None:
+            # collapsed-system RHS (per-cell values already sum to each
+            # merged node's total; Pi is applied for arbitrary callers)
+            B_rhs = poly_project(proj, B_rhs)
+        B_rhs, pen64 = S64.layout(B_rhs), S64.layout(pen64)
+        # the inner passes' field, unless the hierarchy carries it
+        pen32 = None if pen_in_prec else pen64.to(torch.float32)
 
     if A_lo is None:
         if prec is not None and getattr(prec, "levels", ()):
@@ -1196,26 +1210,67 @@ def stencil_solve_advanced_batch(S64: StencilOperator, src_cells, src_vals,
 
     X = torch.zeros_like(B_rhs)
     R = B_rhs
+    R32 = None
     total_iters = 0
     rel = np.full(B_rhs.shape[0], np.inf)
     with _graph_scope(A_lo):
         for pass_i in range(max_refine):
-            # floor-safe inner tolerances: never ask an f32 pass for more
-            # than INNER_RTOL relative
-            inner = max(rtol, INNER_RTOL) if pass_i == 0 else np.clip(
-                rtol / np.where(rel == 0, 1.0, rel), INNER_RTOL, 0.05)
-            dX, _, it = stencil_cg(A_lo, R.to(torch.float32), inner,
-                                   itmax=itmax, prec=prec,
-                                   prec_apply=prec_apply,
-                                   pen=None if pen_in_prec else pen32,
-                                   proj=proj)
-            X = X + dX.to(torch.float64)
-            R = B_rhs - _apply_op(S64, X, pen64, proj)
-            rel = torch.sqrt(_colsum(R * R)).cpu().numpy() / safe_bnorm
-            total_iters += int(it)
+            with CSTIMER.span("refinement pass"):
+                # floor-safe inner tolerances: never ask an f32 pass for
+                # more than INNER_RTOL relative
+                inner = max(rtol, INNER_RTOL) if pass_i == 0 else np.clip(
+                    rtol / np.where(rel == 0, 1.0, rel), INNER_RTOL, 0.05)
+                # on one card every pass writes its right-hand side into
+                # the first pass's block, the buffer B of the graphs the
+                # passes share where no penalty field is passed
+                R32 = (R32.copy_(R) if R32 is not None and _graph_route(R32)
+                       else R.to(torch.float32))
+                dX, _, it = stencil_cg(A_lo, R32, inner, itmax=itmax,
+                                       prec=prec, prec_apply=prec_apply,
+                                       pen=pen32, proj=proj)
+                X = X + dX.to(torch.float64)
+                R = B_rhs - _apply_op(S64, X, pen64, proj)
+                rn = torch.sqrt(_colsum(R * R)).cpu().numpy()
+                if rel_to is None:
+                    rel = rn / safe_bnorm
+                else:
+                    ref = rel_to(X)
+                    rel = np.where(ref > 0, rn / np.where(ref > 0, ref, 1.0),
+                                   np.inf)
+                total_iters += int(it)
             if np.all(rel <= rtol):
                 break
     return S64.gather(X), rel[:nb_in], total_iters
+
+
+# a cell's eight edges: (row offset, column offset) of the far end, and
+# the plane that weighs the edge with its offset from the cell
+_EDGES = ((0, 1, "we", 0, 0), (0, -1, "we", 0, -1),
+          (1, 0, "ws", 0, 0), (-1, 0, "ws", -1, 0),
+          (1, 1, "wse", 0, 0), (-1, -1, "wse", -1, -1),
+          (-1, 1, "wne", 0, 0), (1, -1, "wne", 1, -1))
+
+
+def stencil_edges_at(A: StencilOperator, cells: np.ndarray):
+    """The edges of the cells `cells` ((N, 2) rows and columns): the cell
+    at each edge's far end ((N, 8, 2), clamped into the grid) and the
+    edge's weight ((N, 8) float64 host array, 0 where the grid has no
+    such edge)."""
+    H, W = A.shape
+    cells = np.asarray(cells, np.int64).reshape(-1, 2)
+    far = np.zeros((len(cells), len(_EDGES), 2), np.int64)
+    weights = []
+    for k, (dr, dc, plane, pr, pc) in enumerate(_EDGES):
+        r, c = cells[:, 0] + dr, cells[:, 1] + dc
+        inside = (r >= 0) & (r < H) & (c >= 0) & (c < W)
+        far[:, k, 0], far[:, k, 1] = np.clip(r, 0, H - 1), np.clip(c, 0,
+                                                                   W - 1)
+        at = torch.as_tensor(np.stack([np.clip(cells[:, 0] + pr, 0, H - 1),
+                                       np.clip(cells[:, 1] + pc, 0, W - 1)]),
+                             device=A.diag.device)
+        w = getattr(A, plane)[at[0], at[1]].double().cpu().numpy()
+        weights.append(np.where(inside, w, 0.0))
+    return far, np.stack(weights, axis=1)
 
 
 def advanced_ground_penalty(S64: StencilOperator) -> float:

@@ -40,7 +40,7 @@ def reset():
 
 
 _ACCUM = {"cg_iters", "col_iters", "stencil_solves", "solve_s",
-          "factor_s", "graph_replays", "graph_captures"}
+          "factor_s", "graph_replays", "graph_captures", "pen_iters"}
 
 
 def record(**kw):
@@ -85,6 +85,9 @@ def finalize() -> dict:
       graph_replays   CG iterations run as a replayed CUDA graph (the
                       stencil loop's graph route, solve/cg_graph.py)
       graph_captures  CUDA graphs that route captured
+      pen_iters       CG iterations whose body carried a per-column
+                      penalty field (stencil_cg with pen: all-to-one,
+                      and one-to-all with polygons or on a mesh)
       device_name     torch.cuda.get_device_name() or "cpu" (set once)
 
     and, read at the call:

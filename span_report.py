@@ -23,7 +23,15 @@ CUDA card; exit 2 without one) and, from its jobs' span logs
                    CUDA graphs the loop captured and the iterations it
                    replayed ("graph_captures", "graph_replays"; None
                    where the program has no graph route) and the
-                   replayed share in percent
+                   replayed share in percent; the iterations whose body
+                   carried a per-column penalty field ("pen_iters") and
+                   their share
+  passes           each job's "refinement pass" spans, by the span that
+                   holds them ("batched pair solve" in every solve)
+
+The spans of the one-to-all and advanced solves ("penalty fields", a
+"refinement pass" per float64 pass) appear under their names in
+idle_by_span_s and self_s like every other span.
 
 Prints the report as one JSON line and writes it to --out.  The result
 line of the run is in the report too (its per-layer metrics).
@@ -123,13 +131,28 @@ def span_cost_us(n: int = 20000) -> float:
 
 
 def graph_share(st: dict) -> dict:
-    """A job's CG iterations, graph captures and replays, and the
-    replayed share of its iterations in percent."""
+    """A job's CG iterations, graph captures and replays, the replayed
+    share of its iterations in percent, and its penalty-body iterations
+    and their share."""
     its, replays = st.get("cg_iters"), st.get("graph_replays")
+    pen = st.get("pen_iters")
+
+    def pct(n):
+        return 100.0 * n / its if its and n is not None else None
     return {"cg_iters": its, "graph_captures": st.get("graph_captures"),
-            "graph_replays": replays,
-            "replay_pct": (100.0 * replays / its
-                           if its and replays is not None else None)}
+            "graph_replays": replays, "replay_pct": pct(replays),
+            "pen_iters": pen, "pen_pct": pct(pen)}
+
+
+def passes_by_parent(log) -> dict:
+    """{parent span name: "refinement pass" spans under it} of one job's
+    raw log."""
+    names = {i: name for i, _, name, _, _ in log}
+    out = {}
+    for _, p, name, _, _ in log:
+        if name == "refinement pass":
+            out[names.get(p)] = out.get(names.get(p), 0) + 1
+    return out
 
 
 def report(run) -> dict:
@@ -162,6 +185,7 @@ def report(run) -> dict:
         "spans_per_job": [len(j.stats["spans"]) for j in whole],
         "refused_jobs": len(run.done) - len(whole),
         "graph": [graph_share(j.stats) for j in whole],
+        "passes": [passes_by_parent(j.stats["spans"]) for j in whole],
         "span_cost_us": span_cost_us(),
     }
 

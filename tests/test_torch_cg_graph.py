@@ -281,15 +281,21 @@ def test_graph_iter_pct_reads_the_counters():
 
 def test_span_report_graph_share():
     """span_report's per-job graph line: the counters beside cg_iters and
-    the replayed share; None where the program has no graph route."""
+    the replayed and penalty-body shares; None where the program has no
+    graph route or no penalty counter."""
     import span_report
     assert span_report.graph_share(
         {"cg_iters": 80, "graph_replays": 78, "graph_captures": 2}) == {
         "cg_iters": 80, "graph_captures": 2, "graph_replays": 78,
-        "replay_pct": 97.5}
+        "replay_pct": 97.5, "pen_iters": None, "pen_pct": None}
     assert span_report.graph_share({"cg_iters": 80}) == {
         "cg_iters": 80, "graph_captures": None, "graph_replays": None,
-        "replay_pct": None}
+        "replay_pct": None, "pen_iters": None, "pen_pct": None}
+    assert span_report.graph_share(
+        {"cg_iters": 40, "graph_replays": 38, "graph_captures": 1,
+         "pen_iters": 40}) == {
+        "cg_iters": 40, "graph_captures": 1, "graph_replays": 38,
+        "replay_pct": 95.0, "pen_iters": 40, "pen_pct": 100.0}
 
 
 @pytest.mark.cuda

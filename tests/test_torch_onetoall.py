@@ -23,13 +23,15 @@ from circuitscape_tpu.drivers import onetoall as jo
 from circuitscape_tpu.graph import build as jb
 from circuitscape_tpu.solve import stencil as jst
 from circuitscape_tpu.solve.dispatch import SolverFailedError as JaxFailed
+from circuitscape_tpu_torch import stats
 from circuitscape_tpu_torch.drivers import onetoall as to
 from circuitscape_tpu_torch.graph import build as tb
 from circuitscape_tpu_torch.solve import stencil as tst
 from circuitscape_tpu_torch.solve.dispatch import SolverFailedError
 from golden_utils import DATA_DIR, check_resistances, read_aagrid, readdlm
 from test_onetoall_device import _job, _poly_file
-from test_torch_advanced import both_passes, replay_passes
+from test_torch_advanced import (both_passes, replay_passes,
+                                 replay_port_passes)
 
 # one intra-op thread: the suite runs in several pytest-xdist workers at
 # once, and torch's default of one thread per core oversubscribes the CPU
@@ -74,8 +76,14 @@ def test_prune_strengths_matches_jax():
 def _run_both(tmp_path, cfg):
     """The job through both packages: the same results (1e-5 relative),
     every CG pass at the JAX package's iteration count on its inputs
-    (test_torch_advanced.replay_passes), the same files, and every map
-    within 1e-5 of its max.  Returns the port's result."""
+    (test_torch_advanced.replay_passes), the first passes of the two
+    jobs equal where both solve the same systems, the same files, and
+    every map within 1e-5 of its max.  One-to-all without polygons
+    solves each column for the harmonic on the hierarchy's own operator
+    (ROADMAP section 3), which the JAX package's job does not: there
+    every pass of the port's runs on the JAX package's stencil_cg at the
+    port's count on the port's inputs (replay_port_passes).  Returns
+    the port's result."""
     with both_passes() as (t, j):
         rt = cst.compute(dict(cfg, output_file=str(tmp_path / "t.out")),
                          device="cpu")
@@ -84,7 +92,11 @@ def _run_both(tmp_path, cfg):
     assert rt.dtype == rj.dtype and rt.shape == rj.shape
     np.testing.assert_array_equal(rt[:, 0], rj[:, 0])
     assert np.max(np.abs(rt - rj) / np.maximum(np.abs(rj), 1e-30)) <= 1e-5
-    replay_passes(t, j)
+    harmonic = (cfg["scenario"] == "one-to-all" and
+                cfg.get("use_polygons") != "True")
+    replay_passes(t, j, first_passes=not harmonic)
+    if harmonic:
+        replay_port_passes(t)
     files = sorted(f[1:] for f in os.listdir(tmp_path) if f[:2] == "t_")
     assert files == sorted(f[1:] for f in os.listdir(tmp_path)
                            if f[:2] == "j_")
@@ -241,3 +253,100 @@ def test_golden(tmp_path, monkeypatch, kind, n):
         d2 = float(((read_aagrid(tmp_path / f) -
                      read_aagrid(os.path.join(VERIFY, f))) ** 2).sum())
         assert d2 < 1e-6, f"{f}: grid sum-sq diff {d2}"
+
+
+@pytest.mark.parametrize("scenario", ["one-to-all", "all-to-one"])
+def test_cum_only_matches_point_loop(tmp_path, monkeypatch, scenario):
+    """write_cum_cur_map_only (with write_cur_maps and write_max_cur_maps,
+    as mgVerify7.ini sets them) on the device fast path: no map per
+    point, as the pairwise paths write none (out.write_cur_maps), and the
+    cumulative and max maps those of the per-point loop on the same job
+    within the bound tests/test_onetoall_device.py holds the JAX
+    package's two routes to.  (The per-point loop, advanced_kernel,
+    writes a map per point under the option, as the JAX package's
+    does.)"""
+    cfg = _job(tmp_path, scenario, write_maps=True)
+    cfg.update(suppress_messages="True", write_cum_cur_map_only="True",
+               write_max_cur_maps="True")
+    maps = {}
+    for route, cells_min in (("fast", "1"), ("loop", "100000000")):
+        monkeypatch.setenv("CS_ONETOALL_DEVICE_MIN", cells_min)
+        out = tmp_path / route
+        out.mkdir()
+        cst.compute(dict(cfg, output_file=str(out / "job.out")),
+                    device="cpu")
+        assert (stats.finalize().get("stencil_solves", 0) > 0) == (
+            route == "fast")
+        maps[route] = [read_aagrid(out / f"job_{k}_curmap.asc")
+                       for k in ("cum", "max")]
+    files = os.listdir(tmp_path / "fast")
+    assert not [f for f in files if "_curmap_" in f], files
+    for fast, loop in zip(maps["fast"], maps["loop"]):
+        assert loop.max() > 0
+        assert ((fast - loop) ** 2).sum() < 1e-6
+
+
+def test_edges_at_are_the_operator_columns():
+    """stencil_edges_at: the far ends and weights of a cell's edges are
+    minus the Laplacian's column at the cell, off its diagonal, at
+    corners, borders and inside, NODATA neighbours included."""
+    rng = np.random.default_rng(5)
+    g = rng.uniform(0.5, 2.0, (9, 7))
+    g[rng.random(g.shape) < 0.2] = 0.0
+    A = tst.operator_from_numpy(tst.stencil_planes_np(g, False, False),
+                                torch.float64)
+    H, W = A.shape
+    cells = np.array([[0, 0], [4, 3], [H - 1, W - 1], [0, W - 1], [3, 0]])
+    far, w = tst.stencil_edges_at(A, cells)
+    assert far.shape == (5, 8, 2) and w.shape == (5, 8)
+    for n, (r, c) in enumerate(cells):
+        e = torch.zeros((1, H, W), dtype=torch.float64)
+        e[0, r, c] = 1.0
+        col = -tst.stencil_matvec(A, e)[0].numpy()
+        col[r, c] = 0.0
+        got = np.zeros((H, W))
+        np.add.at(got, (far[n, :, 0], far[n, :, 1]), w[n])
+        np.testing.assert_allclose(got, col, rtol=0, atol=1e-15)
+
+
+
+
+def test_harmonic_passes_stop_on_the_unit_current_residual(tmp_path,
+                                                           monkeypatch):
+    """One-to-all's harmonic columns: the residual the passes stop on,
+    and the gate reads, is the unit-current answer's, u_i's residual
+    over the current u_i + e_i draws out of point i along its edges,
+    under HARMONIC_RTOL; the harmonic's own relative residual (over its
+    right-hand side) differs from it."""
+    monkeypatch.setenv("CS_ONETOALL_DEVICE_MIN", "1")
+    seen = []
+    real = tst.stencil_solve_advanced_batch
+
+    def solve(S64, *a, **k):
+        X, rel, it = real(S64, *a, **k)
+        seen.append((S64, a, k, X.clone(), rel))
+        return X, rel, it
+    monkeypatch.setattr(tst, "stencil_solve_advanced_batch", solve)
+    cst.compute(_job(tmp_path, "one-to-all"), device="cpu")
+    (S64, (sc, sv, gc, gv), k, X, rel), = seen
+    assert k["rel_to"] is not None and k["rtol"] == to.HARMONIC_RTOL
+    assert k["max_refine"] == to.HARMONIC_PASSES
+    H, W = S64.shape
+
+    def field(cells, vals):
+        return tst._scatter_field(torch.as_tensor(cells),
+                                  torch.as_tensor(vals), H, W)
+    R = field(sc, sv) - tst._apply_op(S64, X, field(gc, gv))
+    rn = torch.sqrt(tst._colsum(R * R)).numpy()
+    # column n's point: the one whose edges are its sources
+    far, w = tst.stencil_edges_at(S64, gc[0])
+    own = [next(i for i in range(len(far)) if np.array_equal(far[i], c))
+           for c in sc]
+    drawn = np.array([np.sum(w[i] * (1.0 - X[n].numpy()[far[i, :, 0],
+                                                        far[i, :, 1]]))
+                      for n, i in enumerate(own)])
+    assert len(own) == len(rel) > 1 and np.all(drawn > 0)
+    np.testing.assert_allclose(rel, rn / drawn, rtol=1e-12)
+    assert np.all(rel <= to.HARMONIC_RTOL)
+    bn = np.linalg.norm(np.asarray(sv), axis=1)
+    assert np.all(np.abs(rn / bn - rel) > 0.01 * rel)

@@ -273,3 +273,34 @@ def test_span_report_needs_a_card():
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 2 and out.stdout == ""
+
+
+@pytest.mark.parametrize("scenario", ["one-to-all", "all-to-one"])
+def test_onetoall_log_and_penalty_counter(tmp_path, monkeypatch, scenario):
+    """The one-to-all device path's batched solve logs its penalty fields
+    and a refinement pass per float64 pass inside "batched pair solve",
+    and the table keeps its paths.  All-to-one passes a (zero) penalty
+    field to every pass, so all its CG iterations count in pen_iters;
+    one-to-all's columns solve the penalty-baked operator itself, and
+    none do."""
+    from circuitscape_tpu_torch.timer import CSTIMER
+    monkeypatch.setenv("CS_ONETOALL_DEVICE_MIN", "1")
+    cfg, _ = make_job(str(tmp_path), 64, 64, npoints=5)
+    cfg.update(MAPS, scenario=scenario)
+    cst.compute(cfg, device="cpu")
+    st = stats.finalize()
+    log = st["spans"]
+    by_id = {s[0]: s for s in log}
+    solve = [s for s in log if s[2] == "batched pair solve"]
+    passes = [s for s in log if s[2] == "refinement pass"]
+    fields = [s for s in log if s[2] == "penalty fields"]
+    assert len(solve) == st["stencil_solves"] == 1
+    assert len(fields) == 1 and by_id[fields[0][1]][2] == "batched pair solve"
+    assert 1 <= len(passes) <= 4
+    assert all(by_id[s[1]][2] == "batched pair solve" for s in passes)
+    assert st["cg_iters"] > 0
+    assert st.get("pen_iters") == (st["cg_iters"] if scenario == "all-to-one"
+                                   else None)
+    assert {p[-1] for p in CSTIMER._data} >= {"batched pair solve"}
+    assert not {"refinement pass", "penalty fields"} & {
+        p[-1] for p in CSTIMER._data}
