@@ -203,6 +203,18 @@ Phases (any failure exits non-zero; nothing is caught):
      kernels of each name; walls, solve seconds, replays and captures
      printed.
 
+  22. (after phase 21) the CG iteration's and the V-cycle's glue kernels
+     (csrc/cg_kernels.cu: cg_update_xr and its replacement variant,
+     cg_dots, cg_update_p, prolong_add) against their plain versions
+     run by torch on the card, at B = 32 on every level of the bench
+     hierarchy (1024^2 down to 32^2): elementwise outputs to the bit,
+     cg_dots's column sums within 1e-5 relative and the same bits on a
+     second call; each timed beside its byte bound; then the bench job
+     and its maps recipe with the fused body and the composite one
+     (stencil._fused_body swapped): CG iterations of every pass within
+     one, fused_iters equal to cg_iters and 0, results within 1e-5
+     relative, solve seconds printed.
+
   20. (--cards only) bench_capacity_torch.py's row b: its 14336 x 14336
      job (205.5M cells, bench_capacity.py's recipe, 4 points, shortcut
      mode) on a mesh of every card (CS_FORCE_MESH=1, the default shape,
@@ -228,6 +240,7 @@ writes its rows'.
 Exits 2 without printing a result when no CUDA device is available.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -262,6 +275,12 @@ LEVEL_KERNELS = (
     ("cheb_step", LEVELS[-1:]), ("residual_restrict", LEVELS),
     ("cheb_init", LEVELS[:-1]), ("residual_init", LEVELS[:-1]),
     ("cheb_finish", LEVELS[:-1]))
+
+# the CG iteration's and the V-cycle's glue kernels (csrc/cg_kernels.cu),
+# by the names their launches count under (cuda_stencil.FUSED_LAUNCHES)
+# and the profiler shows; none replaces a TPU kernel
+GLUE_KERNELS = ("cg_update_xr", "cg_dots", "cg_dots_finish", "cg_update_p",
+                "prolong_add")
 
 # float32 rate outside the tensor cores (NVIDIA data sheets); first
 # match of torch.cuda.get_device_name() wins
@@ -593,12 +612,14 @@ def phase_build():
 
 def ptxas_kernels(out):
     """`registers <kernel>: ...` lines from ptxas's -v report: each
-    entry function's registers, shared memory and spill bytes."""
+    entry function's registers, shared memory (0 where ptxas names none)
+    and spill bytes (a template's int or bool argument after its name:
+    <4>, <1>)."""
     lines, name, spill = [], None, ""
     for line in out.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?",
+            k = re.search(r"\d([a-z][a-z_]*_kernel)(?:IL[ib](\d+)E)?",
                           m.group(1))
             name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
                     if k else m.group(1))
@@ -608,10 +629,11 @@ def ptxas_kernels(out):
         if m:
             spill = f", spills {m.group(1)} / {m.group(2)} bytes"
             continue
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
+                      line)
         if m and name:
             lines.append(f"registers {name}: {m.group(1)} registers, "
-                         f"{m.group(2)} bytes smem{spill}")
+                         f"{m.group(2) or 0} bytes smem{spill}")
             name, spill = None, ""
     return lines
 
@@ -1936,8 +1958,9 @@ class swapped:
 def graph_run(cfg, eager=False, profiled=False):
     """One run of cfg on the card with the launch counters zeroed just
     before it, on the CG loop's graph route or (eager) the eager loop.
-    Returns (seconds, stats.finalize(), launches, the X of every pair
-    solve in order, the profiler's kernel count per wrapper or None)."""
+    Returns (seconds, stats.finalize(), launches (the seven's per wrapper
+    and the glue kernels' per kernel), the X of every pair solve in
+    order, the profiler's kernel count per name or None)."""
     import circuitscape_tpu_torch as cst
     from circuitscape_tpu_torch import stats
     from circuitscape_tpu_torch.solve import cuda_stencil as cs
@@ -1971,15 +1994,17 @@ def graph_run(cfg, eager=False, profiled=False):
         dt = time.perf_counter() - t
     kernels = None
     if prof is not None:
-        names = {k for k, _, _ in KERNELS}
+        names = {k for k, _, _ in KERNELS} | set(GLUE_KERNELS)
         kernels = {}
         for e in prof.events():
             m = re.search(r"::(\w+)_kernel\b", e.name)
             if (e.device_type == torch.autograd.DeviceType.CUDA and m and
                     m.group(1) in names):
                 kernels[m.group(1)] = kernels.get(m.group(1), 0) + 1
-    return (dt, stats.finalize(), {k: v for k, v in cs.LAUNCHES.items() if v},
-            xs, kernels)
+    launches = {k: v for k, v in cs.LAUNCHES.items() if v}
+    for (name, _, _, _), n in cs.FUSED_LAUNCHES.items():
+        launches[name] = launches.get(name, 0) + n
+    return dt, stats.finalize(), launches, xs, kernels
 
 
 def phase_graph(cfg):
@@ -2030,11 +2055,191 @@ def phase_graph(cfg):
             "graph_captures": g_st.get("graph_captures"),
             "graph_iter_pct": round(100.0 * g_st.get("graph_replays", 0) /
                                     its, 2),
+            "fused_iters": g_st.get("fused_iters"),
             "x_rel_worst": worst, "launches": g_launch,
             "solve_s": {"graph": round(g_st["solve_s"], 4),
                         "eager": round(e_st["solve_s"], 4)}}
         note(f"graph route {label}: {json.dumps(out[label])}")
     return out
+
+
+def glue_bytes(name, B, H, W) -> int:
+    """Bytes a glue kernel must move (float32): each block read once and
+    written once where it is an output; the per-column scalars and
+    cg_dots's partials are left out (under 0.1% at the main path's
+    shapes)."""
+    cells = H * W
+    coarse = -(-H // 2) * -(-W // 2)
+    return 4 * B * {
+        "cg_update_xr": 6 * cells,
+        "cg_update_xr_replace": 3 * cells,
+        "cg_dots": 2 * cells,
+        "cg_update_p": 3 * cells,
+        "prolong_add": 2 * cells + coarse,
+    }[name]
+
+
+def _glue_pairs(B, H, W, dev, seed):
+    """{name: (kernel call, plain call, timed call)} for the glue kernels
+    on fresh (B, H, W) inputs on dev.  The first two work on copies of
+    the inputs and return (outputs compared to the bit, outputs compared
+    within TOL); the third is the kernel alone, in place on inputs of its
+    own (their values drift from call to call, its bytes do not)."""
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    R, X, P, AP, u = _card_blocks(B, H, W, dev, seed, n=5)
+    Z = R * (1.25 + 0.75 * torch.tanh(u))     # R.Z > 0, as M gives it
+    xc = _card_blocks(B, -(-H // 2), -(-W // 2), dev, seed + 1, n=1)[0]
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    rz, pAp = (0.5 + 0.5 * torch.rand(B, generator=gen, device=dev)
+               for _ in range(2))
+    pAp[0] = 0.0                            # the guard: alpha = 0
+    norm = torch.sqrt(torch.sum(R.double() * R.double(), dim=(-2, -1)))
+    tol = norm * torch.where(torch.arange(B, device=dev) % 2 == 0, 0.5, 2.0)
+    safe = norm.float()
+
+    def xr(fn, replace):
+        def call():
+            x, r = X.clone(), R.clone()
+            fn(x, r, P, AP, rz, pAp, replace)
+            return (x, r), ()
+        return call
+
+    def dots(fn):
+        def call():
+            z_rz, rn2, stop = rz.clone(), torch.empty_like(rz), \
+                torch.empty(2, device=dev)
+            beta = fn(R, Z, z_rz, rn2, safe, tol, stop)
+            return (stop[1:],), (z_rz, rn2, beta, stop[:1])
+        return call
+
+    def upd_p(fn):
+        def call():
+            p = P.clone()
+            fn(p, Z, rz)
+            return (p,), ()
+        return call
+
+    def prolong(fn):
+        def call():
+            return (fn(X.clone(), xc, 1.9),), ()
+        return call
+
+    Xt, Rt, Pt, rzt = X.clone(), R.clone(), P.clone(), rz.clone()
+    rn2t, stopt = torch.empty_like(rz), torch.empty(2, device=dev)
+    half = torch.full_like(rz, 0.5)
+    return {
+        "cg_update_xr": (
+            xr(cs.cg_update_xr, False), xr(cs.cg_update_xr_plain, False),
+            lambda: cs.cg_update_xr(Xt, Rt, P, AP, rz, pAp, False)),
+        "cg_update_xr_replace": (
+            xr(cs.cg_update_xr, True), xr(cs.cg_update_xr_plain, True),
+            lambda: cs.cg_update_xr(Xt, Rt, P, AP, rz, pAp, True)),
+        "cg_dots": (dots(cs.cg_dots), dots(cs.cg_dots_plain),
+                    lambda: cs.cg_dots(R, Z, rzt, rn2t, safe, tol, stopt)),
+        "cg_update_p": (upd_p(cs.cg_update_p), upd_p(cs.cg_update_p_plain),
+                        lambda: cs.cg_update_p(Pt, Z, half)),
+        "prolong_add": (prolong(cs.prolong_add),
+                        prolong(cs.prolong_add_plain),
+                        lambda: cs.prolong_add(Xt, xc, 1.9)),
+    }
+
+
+def check_glue(name, kern, plain, label):
+    """A glue kernel's outputs against its plain version run by torch on
+    the card: elementwise outputs (and cg_dots's stop flag) to the bit,
+    cg_dots's column sums, beta and worst relative residual within TOL
+    relative (their order of additions), and cg_dots's outputs the same
+    bits on a second call."""
+    (exact, sums), (ex_ref, sum_ref) = kern(), plain()
+    if name == "cg_dots":
+        again = kern()
+        if not all(torch.equal(a, b) for a, b in zip(exact + sums,
+                                                     again[0] + again[1])):
+            raise AssertionError(f"cg_dots {label}: two calls on the same "
+                                 f"inputs differ")
+    for g, r in zip(exact, ex_ref):
+        if not torch.equal(g, r):
+            raise AssertionError(f"{name} {label}: not the plain version's "
+                                 f"bits (max diff "
+                                 f"{float((g - r).abs().max())})")
+    worst = 0.0
+    for g, r in zip(sums, sum_ref):
+        rel = float(((g.double() - r.double()).abs() /
+                     r.double().abs().clamp_min(1e-30)).max())
+        if not rel <= TOL:
+            raise AssertionError(f"{name} {label}: sums {rel} relative "
+                                 f"from the plain version's")
+        worst = max(worst, rel)
+    return worst
+
+
+def phase_glue(cfg, dev, rate):
+    """Phase 22: the CG iteration's and the V-cycle's glue kernels
+    (csrc/cg_kernels.cu).  Each against its plain version, run by torch
+    on the card (check_glue), at B = 32 on every level shape of the bench
+    and maps hierarchy (1024^2 down to 32^2: prolong_add's levels, and
+    the CG body's at its fine level and below), timed beside its byte
+    bound at each; then the bench job and its maps recipe with the
+    fused body and with the composite one (stencil._fused_body
+    swapped to refuse): CG iterations of every refinement pass within
+    one, fused_iters = cg_iters on the first and 0 on the second,
+    resistances within 1e-5 relative, solve seconds printed.  Returns
+    {name: {(H, W): (ms, bound ms)}}."""
+    from circuitscape_tpu_torch import stats
+    from circuitscape_tpu_torch.solve import stencil as st
+    import circuitscape_tpu_torch as cst
+    times = {}
+    for H, W in LEVELS:
+        pairs = _glue_pairs(MAIN_B, H, W, dev, seed=H)
+        for name, (kern, plain, timed) in pairs.items():
+            err = check_glue(name, kern, plain, f"B={MAIN_B} {H}x{W}")
+            ms = min(cuda_ms(timed, n=50) for _ in range(3))
+            bound = glue_bytes(name, MAIN_B, H, W) / rate * 1e3
+            times.setdefault(name, {})[(H, W)] = (ms, bound)
+            note(f"glue {name} B={MAIN_B} {H}x{W}: {ms:.4f} ms, byte bound "
+                 f"{bound:.4f} ms, {100 * bound / ms:.1f}% of bound; sums "
+                 f"{err:.2e} relative")
+        del pairs
+    maps = dict(cfg, output_file=os.path.join(
+        os.path.dirname(cfg["output_file"]), "glue_maps.out"),
+        write_cum_cur_map_only="True", write_max_cur_maps="True")
+    out = {}
+    for label, c in (("bench", cfg), ("maps", maps)):
+        runs = {}
+        for body in ("fused", "composite", "fused"):
+            refuse = (lambda real: lambda *a, **k: False)
+            with (swapped(st, "_fused_body", refuse) if body == "composite"
+                  else contextlib.nullcontext()):
+                stats.reset()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = cst.compute(c, device="cuda")
+                torch.cuda.synchronize()
+                runs[body] = (time.perf_counter() - t, stats.finalize(),
+                              np.asarray(r, dtype=np.float64))
+        (f_s, f_st, f_r), (c_s, c_st, c_r) = runs["fused"], runs["composite"]
+        fp, cp = f_st["pass_iters"], c_st["pass_iters"]
+        if len(fp) != len(cp) or any(abs(a - b) > 1 for a, b in zip(fp, cp)):
+            raise AssertionError(f"glue {label}: CG iterations per pass "
+                                 f"{fp} fused, {cp} composite")
+        if (f_st.get("fused_iters") != f_st["cg_iters"] or
+                c_st.get("fused_iters") != 0):
+            raise AssertionError(
+                f"glue {label}: fused_iters {f_st.get('fused_iters')} of "
+                f"{f_st['cg_iters']} fused, {c_st.get('fused_iters')} "
+                f"composite")
+        rel = float(np.max(np.abs(f_r - c_r) /
+                           np.maximum(np.abs(c_r), 1e-30)))
+        if not rel <= 1e-5:
+            raise AssertionError(f"glue {label}: results {rel} relative "
+                                 f"apart")
+        out[label] = {"fused_s": round(f_s, 4), "composite_s": round(c_s, 4),
+                      "solve_s": {"fused": round(f_st["solve_s"], 4),
+                                  "composite": round(c_st["solve_s"], 4)},
+                      "cg_iters": [f_st["cg_iters"], c_st["cg_iters"]],
+                      "result_rel": rel}
+        note(f"glue {label}: {json.dumps(out[label])}")
+    return times
 
 
 class env_set:
@@ -3153,6 +3358,7 @@ def main(argv=()):
         note_per_job(level_times, launches_at)
         phase_maps(cfg, gmap, r)
         phase_graph(cfg)
+        phase_glue(cfg, dev, rate)
         phase_polygons(poly_cfg, r, level_times)
         phase_regions(make_regions_job(tempfile.mkdtemp(dir=d), 1000, 1000,
                                        8), r)

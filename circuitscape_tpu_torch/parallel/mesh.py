@@ -13,8 +13,8 @@ tensor per mesh position, and a ShardStencil a level's operator as one
 StencilOperator per position, each with one halo row from each
 neighbour shard (built once at setup).  ShardStencil has the solver
 methods of solve/stencil.StencilOperator (matvec, cheb_step,
-residual_restrict, prolong, coarse_solve, node_flows, ...) and MeshBlock
-implements the few operations the CG loop and the V-cycle apply to
+residual_restrict, prolong_add, coarse_solve, node_flows, ...) and
+MeshBlock implements the few operations the CG loop and the V-cycle apply to
 blocks (elementwise arithmetic, torch.where, per-column broadcasts, the
 per-column sums), so those loop bodies stay the single-device ones:
 
@@ -518,8 +518,11 @@ class ShardStencil:
         return shard_residual_restrict(
             self, b, x, 1 if coarse is None else coarse.nsh)
 
-    def prolong(self, xc: MeshBlock) -> MeshBlock:
-        return shard_prolong(xc, *self.shape, self.nsh)
+    def prolong_add(self, x: MeshBlock, xc: MeshBlock,
+                    scale: float) -> MeshBlock:
+        """x + scale * P xc, as the JAX package's mesh V-cycle computes
+        it (a new block)."""
+        return x + scale * shard_prolong(xc, *self.shape, self.nsh)
 
     def coarse_solve(self, pinv: MeshBlock, b: MeshBlock) -> MeshBlock:
         return shard_coarse_solve(pinv, b)

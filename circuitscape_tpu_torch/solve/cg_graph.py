@@ -1,16 +1,17 @@
 """The stencil CG iteration on one card, captured once as a CUDA graph and
 replayed.
 
-An iteration of the stencil PCG loop (stencil._cg_loop) is ~100 device
-operations: the hand-written kernels of the V-cycle and the body, and
-torch's elementwise and reduction glue between them, each one Python
-call and one launch.  At 1M cells the card finishes them faster than the
-host issues them and waits.  On the graph route the body of an iteration
-(stencil._cg_step_, which works in place on the static buffers of
-stencil._CGBuffers) is captured once as a CUDA graph and replayed: one
-launch an iteration.  The host keeps the loop: after each replay it
-fetches the stop quantities in one sync and decides as the eager loop
-does (stencil._cg_iterate).
+An iteration of the stencil PCG loop (stencil._cg_loop) is tens of device
+operations: the hand-written kernels of the V-cycle and the body (the
+body's glue fused into kernels of its own, stencil._fused_step, where
+there is no penalty field or projector), and torch's ops between them,
+each one Python call and one launch.  At 1M cells the card finishes
+them faster than the host issues them and waits.  On the graph route the
+body of an iteration (stencil._cg_step_, which works in place on the
+static buffers of stencil._CGBuffers) is captured once as a CUDA graph
+and replayed: one launch an iteration.  The host keeps the loop: after
+each replay it fetches the stop quantities in one sync and decides as
+the eager loop does (stencil._cg_iterate).
 
 There are two bodies: the plain iteration and the one that replaces the
 residual by the true one every 64 iterations.  Each runs eagerly the
@@ -23,7 +24,8 @@ there, since all that one iteration hands the next is in the static
 buffers, and no two graphs ever run at once.
 
 A capture runs nothing, so the kernel launches its wrappers counted
-(cuda_stencil.LAUNCHES, LAUNCHES_AT, LAUNCHES_BHW) are taken back out,
+(cuda_stencil.LAUNCHES, LAUNCHES_AT, LAUNCHES_BHW and, for the fused
+glue, FUSED_LAUNCHES) are taken back out,
 kept with the graph, and counted again at every replay: the counters
 count executions, as the profiler does.
 """
@@ -32,7 +34,6 @@ from __future__ import annotations
 
 import contextlib
 import weakref
-from collections import Counter
 
 import torch
 
@@ -116,7 +117,7 @@ class CGGraphs:
 
     def _capture(self, body):
         graph = self.graph()
-        before = Counter(cuda_stencil.LAUNCHES_BHW)
+        before = cuda_stencil.launch_counts()
         with self._capture_stream():
             # thread_local: a thread writing map files meanwhile may use
             # the CUDA runtime without ending the capture
@@ -127,7 +128,7 @@ class CGGraphs:
             finally:
                 graph.capture_end()
         self.context.last = graph
-        launches = cuda_stencil.LAUNCHES_BHW - before
+        launches = cuda_stencil.launch_counts() - before
         cuda_stencil.count_launches(launches, -1)    # nothing ran yet
         self.captures += 1
         return graph, launches

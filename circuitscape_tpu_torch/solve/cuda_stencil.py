@@ -64,6 +64,20 @@ wrapper, LAUNCHES_AT per wrapper and (H, W) of the grid, LAUNCHES_BHW
 per wrapper and (B, H, W) of the block (plain calls do not count); a
 replayed CUDA graph's launches count at each replay and not at its
 capture (solve/cg_graph.py).
+
+Beside the seven, csrc/cg_kernels.cu holds the glue of the single-card
+float32 CG iteration and of the V-cycle, which replace no Pallas kernel
+but the XLA-fused ops around them (each bound by bytes):
+
+  cg_update_xr      alpha = rz / pAp; X += alpha P, R -= alpha AP
+  cg_dots           rz <- R.Z, rn2 <- R.R, beta, the loop's stop quantities
+  cg_update_p       P = Z + beta P
+  prolong_add       x += s * prolong(xc)
+
+Their wrappers write in place, on either device (the CG loop's buffers,
+the V-cycle's fresh pre-smoothed iterate), and count their launches in
+FUSED_LAUNCHES, per (kernel, B, H, W), apart from the seven's counters
+that the benchmark's roofline metrics read.
 """
 
 from __future__ import annotations
@@ -79,7 +93,7 @@ from pathlib import Path
 
 import torch
 
-from .stencil import StencilOperator, _sh, stencil_matvec
+from .stencil import StencilOperator, _cg_stop, _sh, stencil_matvec
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -94,6 +108,8 @@ LAUNCHES = {"matvec": 0, "matvec_pap": 0, "cheb_step": 0,
             "cheb_finish": 0}
 LAUNCHES_AT = Counter()
 LAUNCHES_BHW = Counter()
+# launches of csrc/cg_kernels.cu per (kernel, B, H, W)
+FUSED_LAUNCHES = Counter()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -112,6 +128,13 @@ _SIGNATURES = {
     "cs_residual_init": [_P] * 5 + [_P] * 5 + [_F] + [_I] * 3 + [_P],
     "cs_cheb_finish": [_P] * 5 + [_P] * 4 + [_F] * 3 + [_I] * 3 + [_P],
     "cs_matvec_pap_blocks": [_I, _I],
+    # csrc/cg_kernels.cu: blocks, flags and scalars, then B, H, W and the
+    # stream
+    "cs_cg_chunks": [_I, _I],
+    "cs_cg_update_xr": [_P] * 6 + [_I] + [_I] * 3 + [_P],
+    "cs_cg_dots": [_P] * 9 + [_I] * 3 + [_P],
+    "cs_cg_update_p": [_P] * 3 + [_I] * 3 + [_P],
+    "cs_prolong_add": [_P, _P, _F] + [_I] * 3 + [_P],
 }
 
 
@@ -120,6 +143,13 @@ def reset_launch_counts():
         LAUNCHES[k] = 0
     LAUNCHES_AT.clear()
     LAUNCHES_BHW.clear()
+    FUSED_LAUNCHES.clear()
+
+
+def launch_counts() -> Counter:
+    """Every kernel launch counted so far, per (wrapper or kernel, B, H,
+    W): LAUNCHES_BHW and FUSED_LAUNCHES together."""
+    return LAUNCHES_BHW + FUSED_LAUNCHES
 
 
 def _launched(name: str, B: int, H: int, W: int):
@@ -129,10 +159,17 @@ def _launched(name: str, B: int, H: int, W: int):
 
 
 def count_launches(launches, times: int = 1):
-    """Add launches ({(wrapper, B, H, W): n}) times over to the three
-    counters: a replayed CUDA graph's kernels, which run without a call
-    of their wrappers (times=-1 takes back those a capture counted)."""
+    """Add launches ({(wrapper, B, H, W): n}, as launch_counts gives them)
+    times over to their counters, the seven's three or FUSED_LAUNCHES: a
+    replayed CUDA graph's kernels, which run without a call of their
+    wrappers (times=-1 takes back those a capture counted)."""
     for (name, B, H, W), n in launches.items():
+        if name not in LAUNCHES:
+            key = (name, B, H, W)
+            FUSED_LAUNCHES[key] += times * n
+            if not FUSED_LAUNCHES[key]:
+                del FUSED_LAUNCHES[key]
+            continue
         LAUNCHES[name] += times * n
         for c, key in ((LAUNCHES_AT, (name, H, W)),
                        (LAUNCHES_BHW, (name, B, H, W))):
@@ -231,6 +268,31 @@ def _raise_if(err: int, name: str):
 
 
 # --- plain versions (CPU path, and the oracle the kernels are held to) ---
+
+def cg_update_xr_plain(X, R, P, AP, rz, pAp, replace: bool):
+    alpha = torch.where(pAp > 0, rz / torch.where(pAp == 0, 1.0, pAp), 0.0)
+    X.add_(alpha[:, None, None] * P)
+    if not replace:
+        R.sub_(alpha[:, None, None] * AP)
+
+
+def cg_dots_plain(R, Z, rz, rn2, safe_bnorm, tol, stop):
+    rz_new = torch.sum(R * Z, dim=(-2, -1))
+    beta = torch.where(rz > 0, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)
+    rz.copy_(rz_new)
+    torch.sum(R * R, dim=(-2, -1), out=rn2)
+    _cg_stop(rn2, safe_bnorm, tol, out=stop)
+    return beta
+
+
+def cg_update_p_plain(P, Z, beta):
+    torch.add(Z, beta[:, None, None] * P, out=P)
+
+
+def prolong_add_plain(x, xc, scale: float):
+    from .geomg import _prolong
+    return x.add_(scale * _prolong(xc, *x.shape[1:]))
+
 
 def matvec_plain(A: StencilOperator, x: torch.Tensor) -> torch.Tensor:
     return stencil_matvec(A, x)
@@ -452,3 +514,117 @@ def cheb_finish(A: StencilOperator, dinv: torch.Tensor, r0: torch.Tensor,
                                  _stream(r0.device)), "cheb_finish")
     _launched("cheb_finish", B, H, W)
     return x2
+
+
+# --- the CG iteration's and the V-cycle's glue (csrc/cg_kernels.cu) -------
+
+def _check_blocks(*blocks: torch.Tensor):
+    """The glue kernels take contiguous float32 (B, H, W) blocks of one
+    shape on one device, 1 <= B <= 65535 and H * W < 2^31."""
+    shape, dev = tuple(blocks[0].shape), blocks[0].device
+    for t in blocks:
+        if (t.device != dev or t.dtype != torch.float32 or
+                not t.is_contiguous() or tuple(t.shape) != shape):
+            raise ValueError("the CG glue kernels need contiguous float32 "
+                             f"blocks of one shape on one device, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if len(shape) != 3 or not 1 <= shape[0] <= 65535 or \
+            shape[1] * shape[2] >= 2**31:
+        raise ValueError(f"the CG glue kernels take (B, H, W) blocks with "
+                         f"1 <= B <= 65535 and H * W < 2^31, got {shape}")
+    return shape
+
+
+def _check_columns(B: int, dev, *cols: torch.Tensor, dtype=torch.float32):
+    for t in cols:
+        if (t.device != dev or t.dtype != dtype or not t.is_contiguous() or
+                tuple(t.shape) != (B,)):
+            raise ValueError(f"the CG glue kernels need contiguous {dtype} "
+                             f"({B},) column vectors on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _fused(name: str, B: int, H: int, W: int):
+    FUSED_LAUNCHES[(name, B, H, W)] += 1
+
+
+def cg_update_xr(X, R, P, AP, rz, pAp, replace: bool) -> None:
+    """The CG body's first update, in place: alpha = where(pAp > 0,
+    rz / pAp, 0) per column, X += alpha P and, unless replace (the
+    iteration that recomputes the true residual), R -= alpha AP.
+    Replaces XLA glue of the JAX CG body (circuitscape_tpu/solve/
+    stencil.py:603-605), no Pallas kernel; bound by bytes (6 B H W floats,
+    3 with replace)."""
+    if not X.is_cuda:
+        return cg_update_xr_plain(X, R, P, AP, rz, pAp, replace)
+    B, H, W = _check_blocks(X, R, P, AP)
+    _check_columns(B, X.device, rz, pAp)
+    lib = _load()
+    _raise_if(lib.cs_cg_update_xr(*map(_ptr, (X, R, P, AP, rz, pAp)),
+                                  int(bool(replace)), B, H, W,
+                                  _stream(X.device)), "cg_update_xr")
+    _fused("cg_update_xr", B, H, W)
+
+
+def cg_dots(R, Z, rz, rn2, safe_bnorm, tol, stop) -> torch.Tensor:
+    """The CG body's column sums and what follows from them, in place:
+    beta = where(rz > 0, R.Z / rz, 0) (returned), rz <- R.Z, rn2 <- R.R
+    and stop <- [max sqrt(rn2) / safe_bnorm, any sqrt(rn2) > tol]
+    (stencil._cg_stop).  Two launches: per-block partial sums (2 B x
+    cs_cg_chunks floats, a fixed order, no float atomics: the same bits on
+    every run) and one block that finishes them.  Replaces XLA glue of the
+    JAX CG body (stencil.py:614-619); bound by bytes (2 B H W floats)."""
+    if not R.is_cuda:
+        return cg_dots_plain(R, Z, rz, rn2, safe_bnorm, tol, stop)
+    B, H, W = _check_blocks(R, Z)
+    _check_columns(B, R.device, rz, rn2, safe_bnorm)
+    tol = tol.to(torch.float64)
+    _check_columns(B, R.device, tol, dtype=torch.float64)
+    _check_columns(2, R.device, stop)
+    lib = _load()
+    part = torch.empty((B, lib.cs_cg_chunks(H, W), 2), dtype=torch.float32,
+                       device=R.device)
+    beta = torch.empty_like(rz)
+    _raise_if(lib.cs_cg_dots(*map(_ptr, (R, Z, part, rz, rn2, beta,
+                                         safe_bnorm, tol, stop)),
+                             B, H, W, _stream(R.device)), "cg_dots")
+    _fused("cg_dots", B, H, W)
+    _fused("cg_dots_finish", B, H, W)
+    return beta
+
+
+def cg_update_p(P, Z, beta) -> None:
+    """The CG body's last update, in place: P = Z + beta P.  Replaces XLA
+    glue of the JAX CG body (stencil.py:616); bound by bytes (3 B H W
+    floats)."""
+    if not P.is_cuda:
+        return cg_update_p_plain(P, Z, beta)
+    B, H, W = _check_blocks(P, Z)
+    _check_columns(B, P.device, beta)
+    lib = _load()
+    _raise_if(lib.cs_cg_update_p(_ptr(P), _ptr(Z), _ptr(beta), B, H, W,
+                                 _stream(P.device)), "cg_update_p")
+    _fused("cg_update_p", B, H, W)
+
+
+def prolong_add(x, xc, scale: float) -> torch.Tensor:
+    """x += scale * geomg._prolong(xc) in place (returns x): the V-cycle's
+    coarse correction, xc (B, ceil(H/2), ceil(W/2)) read at (i/2, j/2)
+    and cropped to x's (H, W).  Replaces XLA glue of the JAX V-cycle
+    (circuitscape_tpu/solve/geomg.py:715); bound by bytes (2 B H W +
+    B ceil(H/2) ceil(W/2) floats)."""
+    if not x.is_cuda:
+        return prolong_add_plain(x, xc, scale)
+    B, H, W = _check_blocks(x)
+    if (tuple(xc.shape) != (B, -(-H // 2), -(-W // 2)) or
+            xc.device != x.device or xc.dtype != torch.float32 or
+            not xc.is_contiguous()):
+        raise ValueError(f"prolong_add needs a contiguous float32 coarse "
+                         f"block ({B}, {-(-H // 2)}, {-(-W // 2)}) on "
+                         f"{x.device}, got {xc.dtype} {tuple(xc.shape)} "
+                         f"on {xc.device}")
+    lib = _load()
+    _raise_if(lib.cs_prolong_add(_ptr(x), _ptr(xc), scale, B, H, W,
+                                 _stream(x.device)), "prolong_add")
+    _fused("prolong_add", B, H, W)
+    return x

@@ -27,7 +27,7 @@ in the JAX package, which differ only in rounding:
 The residual + restrict of every level is one residual_restrict pass.
 
 The generic smoother and the V-cycle reach a level only through its
-operator's methods (matvec, cheb_step, residual_restrict, prolong,
+operator's methods (matvec, cheb_step, residual_restrict, prolong_add,
 coarse_solve).  On a device mesh (parallel/mesh.shard_hierarchy) each
 level's operator is a ShardStencil, whose methods run per shard with
 halo rows, and every level takes the generic configuration, as the JAX
@@ -573,8 +573,10 @@ def _vcycle(hier: GeoMgHierarchy, lvl: int, b):
     xc = (_vcycle(hier, lvl + 1, rc) if coarse is not None else
           L.A.coarse_solve(hier.coarse_pinv, rc))
     # piecewise-constant-prolongator MG underestimates the correction;
-    # a fixed over-correction factor restores grid-independent rates
-    x = x + hier.overcorrect * L.A.prolong(xc)
+    # a fixed over-correction factor restores grid-independent rates.
+    # x + overcorrect * prolong(xc), written into x (the pre-smoother's
+    # fresh output; one kernel on the card)
+    x = L.A.prolong_add(x, xc, hier.overcorrect)
     x = _cheb_smooth(L, b, x)           # post-smooth
     return x
 

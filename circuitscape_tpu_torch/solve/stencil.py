@@ -113,11 +113,13 @@ class StencilOperator:
         from .cuda_stencil import residual_restrict
         return residual_restrict(self, b, x)
 
-    def prolong(self, xc: torch.Tensor) -> torch.Tensor:
-        """Piecewise-constant interpolation of a coarse block to this
-        operator's grid."""
-        from .geomg import _prolong
-        return _prolong(xc, *self.shape)
+    def prolong_add(self, x: torch.Tensor, xc: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+        """x + scale * P xc, the piecewise-constant interpolation of a
+        coarse block to this operator's grid, written into x (one
+        kernel)."""
+        from .cuda_stencil import prolong_add
+        return prolong_add(x, xc, scale)
 
     def coarse_solve(self, pinv, b: torch.Tensor) -> torch.Tensor:
         """The dense pseudo-inverse solve of the grid under this level."""
@@ -741,7 +743,10 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state, tol,
     Pi (L + pen) p (the matvec kernel, the penalty term, poly_project)
     and a column dot, as in the JAX loop.  (On a mesh, matvec_pap is
     the sharded matvec and the shard-ordered column sums, as the JAX
-    package's mesh loop is.)
+    package's mesh loop is.)  On a plain float32 block with neither, the
+    rest of the body is the fused glue (_fused_step: cg_update_xr,
+    cg_dots, cg_update_p), written in place into the loop's own copies;
+    each iteration counts in stats fused_iters.
 
     A block on one card (_graph_route) takes the graph route: the same
     operations in place on the route's buffers (_cg_step_), each body
@@ -760,6 +765,22 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state, tol,
     if state is None:
         state = _cg_state_init(A, B, prec, prec_apply, pen, proj)
     X, R, Z, P, rz, k, best, since, rn2 = state
+    if _fused_body(B, safe_bnorm, pen, proj):
+        # the fused wrappers write in place: the loop's own copies (R and
+        # P of _cg_state_init's state are B and Z themselves)
+        X, R, P, rz, rn2 = (t.clone() for t in (X, R, P, rz, rn2))
+        stop = _cg_stop(rn2, safe_bnorm, tol)
+        k0 = k
+
+        def fused_step(replace):
+            nonlocal Z
+            Z = _fused_step(A, B, X, R, P, rz, rn2, safe_bnorm, tol, stop,
+                            replace, apply_M)
+
+        k, best, since = _cg_iterate(fused_step, stop.tolist, k, best,
+                                     since, k_stop, itmax)
+        stats.record(fused_iters=k - k0)
+        return CGState(X, R, Z, P, rz, k, best, since, rn2)
 
     def step(replace):
         nonlocal X, R, Z, P, rz, rn2
@@ -786,16 +807,49 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state, tol,
     k, best, since = _cg_iterate(
         step, lambda: _cg_stop(rn2, safe_bnorm, tol).tolist(), k, best,
         since, k_stop, itmax)
+    stats.record(fused_iters=0)
     return CGState(X, R, Z, P, rz, k, best, since, rn2)
+
+
+def _fused_body(B, safe_bnorm, pen=None, proj=None) -> bool:
+    """Whether the CG body runs through the fused glue wrappers
+    (_fused_step): a plain float32 block, one card's (their kernels) or a
+    CPU tensor (their plain versions), with float32 column norms and
+    neither a penalty field nor a projector.  A mesh's MeshBlocks, float64
+    blocks and the penalty and projector bodies keep the composite
+    body."""
+    return (pen is None and proj is None and isinstance(B, torch.Tensor) and
+            B.dtype == torch.float32 and safe_bnorm.dtype == torch.float32)
+
+
+def _fused_step(A, B, X, R, P, rz, rn2, safe_bnorm, tol, stop, replace,
+                apply_M):
+    """One iteration of the plain body (no penalty field, no projector)
+    through the fused glue wrappers, in place on X, R, P, rz, rn2 and stop
+    (_cg_stop's quantities): matvec_pap, cg_update_xr (the residual
+    replacement's R = B - A X by the matvec kernel), the preconditioner,
+    cg_dots and cg_update_p.  The same operations as the composite body,
+    each product and sum rounded as it rounds them; only the column sums
+    add in another order on the card.  Returns Z."""
+    from .cuda_stencil import cg_dots, cg_update_p, cg_update_xr
+    AP, pAp = A.matvec_pap(P)
+    cg_update_xr(X, R, P, AP, rz, pAp, replace)
+    del AP
+    if replace:
+        torch.sub(B, A.matvec(X), out=R)
+    Z = apply_M(R)
+    cg_update_p(P, Z, cg_dots(R, Z, rz, rn2, safe_bnorm, tol, stop))
+    return Z
 
 
 class _CGBuffers:
     """The graph route's loop state, in storage that every iteration
     writes in place (a replayed graph reads and writes the addresses it
-    was captured on): the right-hand side, targets and column norms the
-    loop reads (B, tol, safe), the iterate, residual and search direction
-    (X, R, P), their column sums rz = R.Z and rn2 = R.R, and the last
-    iteration's stop quantities (stop, _cg_stop).  Z, the preconditioned
+    was captured on): the right-hand side, targets (in float64) and
+    column norms the loop reads (B, tol, safe), the iterate, residual
+    and search direction (X, R, P), their column sums rz = R.Z and
+    rn2 = R.R, and the last iteration's stop quantities (stop,
+    _cg_stop).  Z, the preconditioned
     residual, is not carried from one iteration to the next, so it has
     no buffer: an iteration's Z lives in the graph's own memory.  B is
     the right-hand side the buffers were made for: a later loop's is
@@ -805,7 +859,9 @@ class _CGBuffers:
         tol = torch.as_tensor(tol, device=B.device)
         self.B = B      # the first loop's right-hand side, not a copy
         self.X, self.R, self.P = (torch.empty_like(B) for _ in range(3))
-        self.tol = torch.empty_like(tol)
+        # in float64: a float32 norm against a float32 target compares
+        # as against its float64 value, and cg_dots takes float64 targets
+        self.tol = torch.empty_like(tol, dtype=torch.float64)
         self.safe = torch.empty_like(safe_bnorm)
         self.rz = B.new_empty(B.shape[0])
         self.rn2 = B.new_empty(B.shape[0])
@@ -842,7 +898,12 @@ def _cg_step_(A: StencilOperator, s: _CGBuffers, replace: bool, apply_M,
     operations in the same order, with X, R, P, rz and rn2 written into
     their buffers (the same bits as the eager loop) and the stop
     quantities into s.stop.  replace: the true-residual replacement
-    R = B - A X."""
+    R = B - A X.  Without a penalty field or a projector on a float32
+    block, the fused glue (_fused_step)."""
+    if _fused_body(s.B, s.safe, pen, proj):
+        _fused_step(A, s.B, s.X, s.R, s.P, s.rz, s.rn2, s.safe, s.tol,
+                    s.stop, replace, apply_M)
+        return
     if pen is None and proj is None:
         AP, pAp = A.matvec_pap(s.P)
     else:
@@ -884,12 +945,14 @@ def _cg_loop_static(A, B, state, tol, safe_bnorm, k_stop: int, itmax: int,
     _CGBuffers), each iteration graphs.run on _cg_step_ (a replayed
     graph once captured, solve/cg_graph.py), the host's decisions those
     of the eager loop (_cg_iterate).  Records the iterations replayed
-    and the graphs captured (stats graph_replays, graph_captures).  The
-    returned state has no Z (_CGBuffers)."""
+    and the graphs captured (stats graph_replays, graph_captures), and
+    the iterations whose body ran the fused glue (stats fused_iters).
+    The returned state has no Z (_CGBuffers)."""
     s = graphs.bufs
     s.load(B, tol, safe_bnorm, state, apply_M)
     k, best, since = ((0, np.finfo(_FTYPE[B.dtype]).max, 0) if state is None
                       else (state.k, state.best, state.since))
+    k0 = k
     replays, captures = graphs.replays, graphs.captures
 
     def step(replace):
@@ -898,8 +961,10 @@ def _cg_loop_static(A, B, state, tol, safe_bnorm, k_stop: int, itmax: int,
 
     k, best, since = _cg_iterate(step, s.stop.tolist, k, best, since,
                                  k_stop, itmax)
+    fused = _fused_body(B, safe_bnorm, pen, proj)
     stats.record(graph_replays=graphs.replays - replays,
-                 graph_captures=graphs.captures - captures)
+                 graph_captures=graphs.captures - captures,
+                 fused_iters=k - k0 if fused else 0)
     return CGState(s.X, s.R, None, s.P, s.rz, k, best, since, s.rn2)
 
 

@@ -40,7 +40,8 @@ def reset():
 
 
 _ACCUM = {"cg_iters", "col_iters", "stencil_solves", "solve_s",
-          "factor_s", "graph_replays", "graph_captures", "pen_iters"}
+          "factor_s", "graph_replays", "graph_captures", "pen_iters",
+          "fused_iters"}
 
 
 def record(**kw):
@@ -85,6 +86,10 @@ def finalize() -> dict:
       graph_replays   CG iterations run as a replayed CUDA graph (the
                       stencil loop's graph route, solve/cg_graph.py)
       graph_captures  CUDA graphs that route captured
+      fused_iters     CG iterations whose body ran the fused glue
+                      (stencil._fused_step: the kernels of
+                      csrc/cg_kernels.cu on the card, their plain
+                      versions on the CPU)
       pen_iters       CG iterations whose body carried a per-column
                       penalty field (stencil_cg with pen: all-to-one,
                       and one-to-all with polygons or on a mesh)

@@ -25,7 +25,9 @@ CUDA card; exit 2 without one) and, from its jobs' span logs
                    where the program has no graph route) and the
                    replayed share in percent; the iterations whose body
                    carried a per-column penalty field ("pen_iters") and
-                   their share
+                   their share; the iterations whose body ran the fused
+                   glue kernels ("fused_iters"; None where the program
+                   has no fused body) and their share
   passes           each job's "refinement pass" spans, by the span that
                    holds them ("batched pair solve" in every solve)
 
@@ -132,16 +134,18 @@ def span_cost_us(n: int = 20000) -> float:
 
 def graph_share(st: dict) -> dict:
     """A job's CG iterations, graph captures and replays, the replayed
-    share of its iterations in percent, and its penalty-body iterations
-    and their share."""
+    share of its iterations in percent, its penalty-body iterations and
+    their share, and its iterations through the fused glue and their
+    share."""
     its, replays = st.get("cg_iters"), st.get("graph_replays")
-    pen = st.get("pen_iters")
+    pen, fused = st.get("pen_iters"), st.get("fused_iters")
 
     def pct(n):
         return 100.0 * n / its if its and n is not None else None
     return {"cg_iters": its, "graph_captures": st.get("graph_captures"),
             "graph_replays": replays, "replay_pct": pct(replays),
-            "pen_iters": pen, "pen_pct": pct(pen)}
+            "pen_iters": pen, "pen_pct": pct(pen),
+            "fused_iters": fused, "fused_pct": pct(fused)}
 
 
 def passes_by_parent(log) -> dict:

@@ -3,7 +3,10 @@ solve/cg_graph.py) on the CPU: its in-place iteration body gives the eager
 loop's bits, the route follows the block's device and type, a replayed
 graph's kernel launches count once per replay and never for the capture,
 graphs are kept per operator only where they may be replayed again, and
-the benchmark's solve.graph_iter_pct reads the counters.  One test,
+the benchmark's solve.graph_iter_pct reads the counters; the body without
+a penalty field or projector goes through the fused glue wrappers, whose
+iterations count in stats fused_iters (read by solve.fused_iter_pct) and
+whose launches count apart from the seven kernels'.  One test,
 marked `cuda`, holds the route against the eager loop on the card
 (chip_smoke.phase_graph); it skips here.  This file imports neither JAX
 nor circuitscape_tpu."""
@@ -281,21 +284,161 @@ def test_graph_iter_pct_reads_the_counters():
 
 def test_span_report_graph_share():
     """span_report's per-job graph line: the counters beside cg_iters and
-    the replayed and penalty-body shares; None where the program has no
-    graph route or no penalty counter."""
+    the replayed, penalty-body and fused-body shares; None where the
+    program has no graph route, no penalty counter or no fused body."""
     import span_report
     assert span_report.graph_share(
         {"cg_iters": 80, "graph_replays": 78, "graph_captures": 2}) == {
         "cg_iters": 80, "graph_captures": 2, "graph_replays": 78,
-        "replay_pct": 97.5, "pen_iters": None, "pen_pct": None}
+        "replay_pct": 97.5, "pen_iters": None, "pen_pct": None,
+        "fused_iters": None, "fused_pct": None}
     assert span_report.graph_share({"cg_iters": 80}) == {
         "cg_iters": 80, "graph_captures": None, "graph_replays": None,
-        "replay_pct": None, "pen_iters": None, "pen_pct": None}
+        "replay_pct": None, "pen_iters": None, "pen_pct": None,
+        "fused_iters": None, "fused_pct": None}
     assert span_report.graph_share(
         {"cg_iters": 40, "graph_replays": 38, "graph_captures": 1,
-         "pen_iters": 40}) == {
+         "pen_iters": 40, "fused_iters": 0}) == {
         "cg_iters": 40, "graph_captures": 1, "graph_replays": 38,
-        "replay_pct": 95.0, "pen_iters": 40, "pen_pct": 100.0}
+        "replay_pct": 95.0, "pen_iters": 40, "pen_pct": 100.0,
+        "fused_iters": 0, "fused_pct": 0.0}
+    assert span_report.graph_share(
+        {"cg_iters": 80, "graph_replays": 78, "graph_captures": 2,
+         "fused_iters": 80})["fused_pct"] == 100.0
+
+
+@pytest.mark.parametrize("body", ["plain", "pen", "proj"])
+def test_fused_iters_count_the_fused_body(body, monkeypatch):
+    """stencil_cg on a one-card-sized float32 block (here on the CPU,
+    where the fused wrappers run their plain versions): every iteration
+    of the plain body goes through cg_update_xr, cg_dots and cg_update_p
+    once each and counts in stats fused_iters, which then equals the
+    solve's iterations; under a penalty field or a projector none does
+    and fused_iters is 0."""
+    calls = []
+    for name in ("cg_update_xr", "cg_dots", "cg_update_p"):
+        real = getattr(cuda_stencil, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+        monkeypatch.setattr(cuda_stencil, name, counted)
+    A, B, prec, prec_apply, pen, proj = _case(body, mismatch=0.0)
+    stats.reset()
+    try:
+        _, rel, it = tst.stencil_cg(A, B, 1e-4, prec=prec,
+                                    prec_apply=prec_apply, pen=pen,
+                                    proj=proj)
+        job = stats.finalize()
+    finally:
+        stats.reset()
+    assert it > 0 and float(rel.max()) < 1e-3
+    fused = it if body == "plain" else 0
+    assert job["fused_iters"] == fused
+    assert sorted(calls) == sorted(
+        ["cg_update_xr", "cg_dots", "cg_update_p"] * fused)
+
+
+def test_fused_step_matches_composite_body():
+    """One fused iteration (_fused_step, the plain versions on the CPU)
+    against the composite body's expressions (the penalty and projector
+    bodies' code, with neither): the same bits in X, R, P, rz, rn2 and
+    the stop quantities, with and without the residual replacement."""
+    A, B, prec, prec_apply, _, _ = _case("plain")
+    bnorm = torch.sqrt(tst._colsum(B * B))
+    safe = torch.where(bnorm == 0, 1.0, bnorm)
+    tol = 1e-3 * bnorm
+    apply_M = tst._make_prec_apply(A, prec, prec_apply)
+    st = tst._cg_state_init(A, B, prec, prec_apply)
+    for replace in (False, True):
+        X, R, P, rz, rn2 = (t.clone() for t in (st.X, st.R, st.P, st.rz,
+                                                st.rn2))
+        stop = torch.empty(2)
+        tst._fused_step(A, B, X, R, P, rz, rn2, safe, tol, stop, replace,
+                        apply_M)
+        AP, pAp = A.matvec_pap(st.P)
+        alpha = torch.where(pAp > 0,
+                            st.rz / torch.where(pAp == 0, 1.0, pAp), 0.0)
+        X2 = st.X + alpha[:, None, None] * st.P
+        R2 = (B - A.matvec(X2) if replace else
+              st.R - alpha[:, None, None] * AP)
+        Z2 = apply_M(R2)
+        rz2 = tst._colsum(R2 * Z2)
+        beta = torch.where(st.rz > 0,
+                           rz2 / torch.where(st.rz == 0, 1.0, st.rz), 0.0)
+        P2 = Z2 + beta[:, None, None] * st.P
+        rn22 = tst._colsum(R2 * R2)
+        for got, want in ((X, X2), (R, R2), (P, P2), (rz, rz2),
+                          (rn2, rn22),
+                          (stop, tst._cg_stop(rn22, safe, tol))):
+            assert torch.equal(got, want)
+
+
+def test_glue_launches_count_apart():
+    """The glue kernels' launches (cuda_stencil._fused) count in
+    FUSED_LAUNCHES alone, never in LAUNCHES, LAUNCHES_AT or LAUNCHES_BHW
+    (the benchmark's roofline metrics read those, and know only the
+    seven); a captured body's glue launches are taken back at the
+    capture and counted again at each replay, as the seven's are."""
+    cuda_stencil.reset_launch_counts()
+    glue = ("cg_update_xr", "cg_dots", "cg_dots_finish", "cg_update_p",
+            "prolong_add")
+
+    def body():
+        cuda_stencil._launched("matvec_pap", 8, 64, 64)
+        for name in glue:
+            cuda_stencil._fused(name, 8, 64, 64)
+        cuda_stencil._fused("prolong_add", 8, 32, 32)
+
+    graphs = cg_graph.CGGraphs(None, _Graph, SimpleNamespace(
+        stream=None, pool=None, last=None))
+    try:
+        for _ in range(4):
+            graphs.run(False, body)
+        assert graphs.captures == 1 and graphs.replays == 3
+        want = {(name, 8, 64, 64): 4 for name in glue}
+        want[("prolong_add", 8, 32, 32)] = 4
+        assert dict(cuda_stencil.FUSED_LAUNCHES) == want
+        assert dict(cuda_stencil.LAUNCHES_BHW) == {
+            ("matvec_pap", 8, 64, 64): 4}
+        assert dict(cuda_stencil.LAUNCHES_AT) == {
+            ("matvec_pap", 64, 64): 4}
+        assert set(cuda_stencil.LAUNCHES) == set(frozen_kernels())
+        assert cuda_stencil.launch_counts() == (
+            cuda_stencil.LAUNCHES_BHW + cuda_stencil.FUSED_LAUNCHES)
+    finally:
+        cuda_stencil.reset_launch_counts()
+    assert not cuda_stencil.FUSED_LAUNCHES
+
+
+def frozen_kernels():
+    from benchmark import frozen
+    return frozen.KERNELS
+
+
+def test_fused_iter_pct_reads_the_counters():
+    """solve.fused_iter_pct: 100 x fused_iters / cg_iters, mean over the
+    run's span jobs; None where a job lacks the counter (a program
+    without the fused body) or there are no jobs."""
+    from benchmark import cells
+
+    class Job:
+        def __init__(self, **st):
+            self.stats = st
+
+    class Run:
+        def __init__(self, *jobs):
+            self.span_jobs = list(jobs)
+
+    read = cells.reader("solve.fused_iter_pct", True)
+    assert read(Run(Job(cg_iters=80, fused_iters=80),
+                    Job(cg_iters=100, fused_iters=100))) == 100.0
+    assert read(Run(Job(cg_iters=80, fused_iters=0),
+                    Job(cg_iters=100, fused_iters=50))) == pytest.approx(
+        25.0)
+    assert read(Run(Job(cg_iters=80, fused_iters=80),
+                    Job(cg_iters=80))) is None
+    assert read(Run()) is None
 
 
 @pytest.mark.cuda

@@ -85,6 +85,42 @@ def test_wrappers_refuse_what_kernels_do_not_take(dev):
         cs.cheb_finish(A, dinv, x.transpose(1, 2), b, 0.8, 0.3, 1.1)
 
 
+def test_glue_wrappers_refuse_what_kernels_do_not_take(dev):
+    from circuitscape_tpu_torch.solve import cuda_stencil as cs
+    x, r, p = _blocks(4, 16, 16, dev, 3)
+    col = torch.ones(4, device=dev)
+    stop = torch.empty(2, device=dev)
+    with pytest.raises(ValueError):
+        cs.cg_update_xr(x.double(), r, p, r, col, col, False)
+    with pytest.raises(ValueError):
+        cs.cg_update_xr(x, r, p, r[:, :, :8], col, col, False)
+    with pytest.raises(ValueError):
+        cs.cg_update_p(p.transpose(1, 2), x, col)
+    with pytest.raises(ValueError):
+        cs.cg_update_p(p, x, col[:3])
+    with pytest.raises(ValueError):
+        cs.cg_dots(r, x, col, col.clone(), col.double(), col, stop)
+    with pytest.raises(ValueError):
+        cs.prolong_add(x, x[:, :8, :8].contiguous()[:, :7], 1.9)
+    with pytest.raises(ValueError):
+        cs.prolong_add(x, x[:, :8, :8].double(), 1.9)
+
+
+@pytest.mark.parametrize("B", [1, 5, 40])
+@pytest.mark.parametrize("shape", [(1, 1), (2, 3), (31, 33), (37, 53),
+                                   (1024, 1024)])
+def test_glue_kernels_match_plain(dev, B, shape):
+    """The CG and V-cycle glue kernels (csrc/cg_kernels.cu) against their
+    plain versions run by torch on the card (chip_smoke.check_glue):
+    elementwise outputs to the bit, cg_dots's sums within TOL and
+    repeating to the bit, the zero guards (pAp = 0 in column 0), odd and
+    cropped grids."""
+    from chip_smoke import _glue_pairs, check_glue
+    for name, (kern, plain, _) in _glue_pairs(B, *shape, dev,
+                                              seed=B).items():
+        check_glue(name, kern, plain, f"B={B} {shape}")
+
+
 # the staged kernels (tiles in shared memory, a chunk of the batch per
 # block): every tile edge, odd sides, widths that are not a multiple of 32
 # or 4, the coarse level where the V-cycle runs matvec and cheb_step, and

@@ -1,7 +1,9 @@
 """The CUDA kernels of circuitscape_tpu_torch, run on the host: their
-source, csrc/stencil_kernels.cu, compiled by the host C++ compiler against
-a small header that stands in for the CUDA runtime and builtins, with each
-C entry point held against the kernel's plain version.
+sources, csrc/stencil_kernels.cu and csrc/cg_kernels.cu, compiled by the
+host C++ compiler against a small header that stands in for the CUDA
+runtime and builtins, with each C entry point held against the kernel's
+plain version (the CG glue's elementwise outputs to the bit, products and
+sums rounded one at a time on both sides).
 
 The header runs a launch block by block, each block's threads as host
 threads; __syncthreads is a barrier, a warp shuffle goes through a buffer
@@ -34,6 +36,7 @@ TOL = 1e-5   # max |kernel - plain| <= TOL * max |plain|: f32 sum order
 HEADER = r"""
 #pragma once
 #include <atomic>
+#include <cmath>
 #include <condition_variable>
 #include <cstddef>
 #include <cstdint>
@@ -66,10 +69,7 @@ inline int sms = 132;            // multiprocessors the launches see
 inline int blocks_per_sm = 3;
 inline std::atomic<int> error{0};
 }
-extern "C" void emu_set_card(int sms, int blocks_per_sm) {
-    emu::sms = sms;
-    emu::blocks_per_sm = blocks_per_sm;
-}
+extern "C" void emu_set_card(int sms, int blocks_per_sm);
 inline int cudaGetLastError() {
     const int e = emu::error;
     emu::error = cudaSuccess;
@@ -90,6 +90,13 @@ inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;
 inline int min(int a, int b) { return a < b ? a : b; }
 template <class T> inline T __ldg(const T* p) { return *p; }
+// round-to-nearest float arithmetic, one operation each (built with
+// -ffp-contract=off, so nothing fuses them)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 
 namespace emu {
 struct Barrier {
@@ -203,6 +210,15 @@ def host_source(cu: str) -> str:
                    flags=re.S))
 
 
+EMU_SOURCE = r"""
+#include "cuda_host.h"
+extern "C" void emu_set_card(int sms, int blocks_per_sm) {
+    emu::sms = sms;
+    emu::blocks_per_sm = blocks_per_sm;
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     cxx = shutil.which("g++")
@@ -210,13 +226,16 @@ def lib(tmp_path_factory):
         pytest.skip("needs g++ to build the kernels for the host")
     d = tmp_path_factory.mktemp("kernels_host")
     (d / "cuda_host.h").write_text(HEADER)
-    src = d / "stencil_kernels.cpp"
-    src.write_text(host_source(
-        (cs.CSRC / "stencil_kernels.cu").read_text()))
+    (d / "emu.cpp").write_text(EMU_SOURCE)
+    srcs = [d / "emu.cpp"]
+    for cu in sorted(cs.CSRC.glob("*.cu")):
+        srcs.append(d / f"{cu.stem}.cpp")
+        srcs[-1].write_text(host_source(cu.read_text()))
     so = d / "libstencil_host.so"
     subprocess.run([cxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-pthread",
-                    "-Wno-unknown-pragmas", f"-I{d}", "-o", str(so),
-                    str(src)], check=True, capture_output=True)
+                    "-ffp-contract=off", "-Wno-unknown-pragmas", f"-I{d}",
+                    "-o", str(so), *map(str, srcs)], check=True,
+                   capture_output=True)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in cs._SIGNATURES.items():
         getattr(lib, name).argtypes = argtypes
@@ -374,10 +393,176 @@ def test_residual_restrict_misaligned_b_on_host(lib):
     _close(got, (cs.residual_restrict_plain(A, b, x),))
 
 
+GLUE = ("cg_update_xr", "cg_update_xr_replace", "cg_dots", "cg_update_p",
+        "prolong_add")
+SUM_TOL = 1e-6   # the column sums' relative difference: their order
+
+
+def _glue_inputs(B, H, W, seed):
+    """Blocks R, Z (Z = R scaled by 0.5-2 a cell, so R.Z > 0 as a
+    preconditioner gives it), X, P, AP, a coarse block xc, and per-column
+    rz and pAp with the zero guards' cases: column 0 has pAp = 0, column
+    1 rz = 0 (a column that has converged) and, with three columns or
+    more, column 2 pAp < 0."""
+    rng = np.random.default_rng(seed)
+
+    def block(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32)
+    R, X, P, AP = (block(B, H, W) for _ in range(4))
+    Z = R * torch.as_tensor(rng.uniform(0.5, 2.0, (B, H, W)),
+                            dtype=torch.float32)
+    xc = block(B, -(-H // 2), -(-W // 2))
+    rz = torch.as_tensor(rng.uniform(0.5, 2.0, B), dtype=torch.float32)
+    pAp = torch.as_tensor(rng.uniform(0.5, 2.0, B), dtype=torch.float32)
+    pAp[0] = 0.0
+    if B > 1:
+        rz[1] = 0.0
+    if B > 2:
+        pAp[2] = -1.0
+    return dict(R=R, Z=Z, X=X, P=P, AP=AP, xc=xc, rz=rz, pAp=pAp)
+
+
+def _tol_safe(R, seed):
+    """Targets in float64 at half or twice each column's ||R|| (never
+    near it, so the stop flag compares the same on both sides) and
+    column norms around ||R||."""
+    rng = np.random.default_rng(seed + 1)
+    norm = torch.sqrt(torch.sum(R.double() * R.double(), dim=(-2, -1)))
+    scale = rng.choice([0.5, 2.0], R.shape[0])
+    tol = norm * torch.as_tensor(scale)
+    safe = (norm * torch.as_tensor(rng.uniform(0.5, 2.0, R.shape[0]))
+            ).to(torch.float32)
+    return tol, safe
+
+
+def _run_glue(lib, name, t, tol=None, safe=None):
+    """One glue kernel's C entry point on clones of the inputs t, and its
+    plain version on other clones: (kernel's outputs, plain's), the
+    sums' apart (the third item)."""
+    def ptr(x):
+        return ctypes.c_void_p(x.data_ptr())
+    k = {n: v.clone() for n, v in t.items()}
+    p = {n: v.clone() for n, v in t.items()}
+    B, H, W = t["R"].shape
+    if name.startswith("cg_update_xr"):
+        replace = name.endswith("replace")
+        err = lib.cs_cg_update_xr(*(ptr(k[n]) for n in ("X", "R", "P", "AP",
+                                                         "rz", "pAp")),
+                                  int(replace), B, H, W, None)
+        cs.cg_update_xr_plain(p["X"], p["R"], p["P"], p["AP"], p["rz"],
+                              p["pAp"], replace)
+        got, ref = (k["X"], k["R"]), (p["X"], p["R"])
+        sums = ((), ())
+    elif name == "cg_dots":
+        part = torch.full((B, lib.cs_cg_chunks(H, W), 2), float("nan"))
+        beta = torch.full((B,), float("nan"))
+        stop = torch.full((2,), float("nan"))
+        err = lib.cs_cg_dots(*map(ptr, (k["R"], k["Z"], part, k["rz"],
+                                        k["rn2"], beta, safe, tol, stop)),
+                             B, H, W, None)
+        pstop = torch.empty(2)
+        pbeta = cs.cg_dots_plain(p["R"], p["Z"], p["rz"], p["rn2"], safe,
+                                 tol, pstop)
+        got, ref = (), ()
+        sums = ((k["rz"], k["rn2"], beta, stop[:1], stop[1:]),
+                (p["rz"], p["rn2"], pbeta, pstop[:1], pstop[1:]))
+    elif name == "cg_update_p":
+        beta = t["rz"]
+        err = lib.cs_cg_update_p(ptr(k["P"]), ptr(k["Z"]), ptr(beta), B, H,
+                                 W, None)
+        cs.cg_update_p_plain(p["P"], p["Z"], beta)
+        got, ref, sums = (k["P"],), (p["P"],), ((), ())
+    else:
+        scale = 1.9
+        err = lib.cs_prolong_add(ptr(k["X"]), ptr(k["xc"]), scale, B, H, W,
+                                 None)
+        out = cs.prolong_add_plain(p["X"], p["xc"], scale)
+        assert out is p["X"]
+        got, ref, sums = (k["X"],), (p["X"],), ((), ())
+    assert err == 0
+    return got, ref, sums
+
+
+def _glue_agree(got, ref, sums):
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    for g, r in zip(*sums):
+        assert not torch.isnan(g).any()
+        assert torch.allclose(g, r, rtol=SUM_TOL, atol=0.0), (g, r)
+
+
+@pytest.mark.parametrize("name", GLUE)
+@pytest.mark.parametrize("B", [1, 5, 40])
+@pytest.mark.parametrize("shape", [(1, 1), (2, 3), (31, 33), (37, 53)])
+def test_glue_kernel_matches_plain_on_host(lib, name, B, shape):
+    """Each CG and V-cycle glue kernel against its plain version: the
+    elementwise outputs to the bit (X and R of cg_update_xr, R untouched
+    by the replacement iteration's variant; P; prolong_add's x on odd
+    sides, the coarse block's padded row and column cropped), with the
+    zero guards (pAp = 0 or < 0: alpha 0; rz = 0: beta 0); cg_dots's
+    column sums, beta and worst relative residual within 1e-6, its stop
+    flag equal."""
+    t = _glue_inputs(B, *shape, seed=B * 1000 + shape[0] * 10 + shape[1])
+    t["rn2"] = torch.full((B,), float("nan"))
+    tol, safe = _tol_safe(t["R"], B)
+    got, ref, sums = _run_glue(lib, name, t, tol, safe)
+    _glue_agree(got, ref, sums)
+    if name == "cg_update_xr_replace":
+        assert torch.equal(got[1], t["R"])
+    if name == "cg_dots" and B > 1:
+        assert float(sums[0][2][1]) == 0.0      # rz = 0: beta = 0
+
+
+def test_glue_kernels_take_any_alignment_on_host(lib):
+    """Blocks one float off a 16-byte boundary and a grid past one block
+    a column (71 x 75, B = 3): the kernels take any address and split a
+    column over several blocks, the sums' partials in more than one
+    chunk."""
+    B, H, W = 3, 71, 75
+    assert lib.cs_cg_chunks(H, W) > 1
+    t = _glue_inputs(B, H, W, seed=9)
+    for n in ("R", "Z", "X", "P", "AP", "xc"):
+        buf = torch.empty(t[n].numel() + 1)
+        buf[1:] = t[n].reshape(-1)
+        t[n] = buf[1:].view(t[n].shape)
+    t["rn2"] = torch.zeros(B)
+    tol, safe = _tol_safe(t["R"], 9)
+    for name in GLUE:
+        _glue_agree(*_run_glue(lib, name, t, tol, safe))
+
+
+def test_cg_dots_repeats_its_bits_on_host(lib):
+    """cg_dots twice on the same inputs: the same bits in rz, rn2, beta
+    and stop (a fixed order of additions, no atomics), a NaN column's
+    worst relative residual NaN, as torch.max gives it."""
+    B, H, W = 5, 37, 53
+    t = _glue_inputs(B, H, W, seed=5)
+    tol, safe = _tol_safe(t["R"], 5)
+    outs = []
+    for _ in range(2):
+        t["rn2"] = torch.zeros(B)
+        k = {n: v.clone() for n, v in t.items()}
+        part = torch.empty((B, lib.cs_cg_chunks(H, W), 2))
+        beta, stop = torch.empty(B), torch.empty(2)
+        assert lib.cs_cg_dots(*(ctypes.c_void_p(x.data_ptr()) for x in (
+            k["R"], k["Z"], part, k["rz"], k["rn2"], beta, safe, tol,
+            stop)), B, H, W, None) == 0
+        outs.append((k["rz"], k["rn2"], beta, stop))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    t["R"][3, 5, 7] = float("nan")
+    t["rn2"] = torch.zeros(B)
+    _, _, (got, ref) = _run_glue(lib, "cg_dots", t, tol, safe)
+    assert torch.isnan(got[3]) and torch.isnan(ref[3])
+    assert torch.equal(got[4], ref[4])
+
+
 def test_ptxas_report_names_each_kernel():
     """chip_smoke.py's `registers` lines from an `nvcc -Xptxas -v` report:
-    each entry function by its kernel name (with its strip height where
-    it is a template), its registers, shared memory and spills."""
+    each entry function by its kernel name (with its strip height, or
+    cg_update_xr's replace flag, where it is a template), its registers,
+    shared memory and spills: the seven and the CG glue kernels."""
     from chip_smoke import ptxas_kernels
     fn = ("_ZN12_GLOBAL__N_120residual_init_kernelILi4EEEvNS_6PlanesEPKfS3_"
           "S3_PfS4_fiiii")
@@ -391,8 +576,29 @@ ptxas info    : Function properties for _ZN12_GLOBAL__N_117matvec_pap_kernelENS_
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 76 registers, used 1 barriers, 14000 bytes smem, 400 bytes cmem[0]
 """
+    glue = [("_ZN12_GLOBAL__N_119cg_update_xr_kernelILb1EEEvPfS1_PKfS3_S3_"
+             "S3_i", "cg_update_xr_kernel<1>", 30, 0),
+            ("_ZN12_GLOBAL__N_114cg_dots_kernelEPKfS1_Pfi",
+             "cg_dots_kernel", 26, 64),
+            ("_ZN12_GLOBAL__N_121cg_dots_finish_kernelEPK6float2iiPfS3_S3_"
+             "PKfPKdS3_", "cg_dots_finish_kernel", 24, 256),
+            ("_ZN12_GLOBAL__N_118cg_update_p_kernelEPfPKfS2_i",
+             "cg_update_p_kernel", 22, 0),
+            ("_ZN12_GLOBAL__N_118prolong_add_kernelEPfPKffii",
+             "prolong_add_kernel", 28, 0)]
+    for fn, _, regs, smem in glue:
+        # a kernel without shared memory: ptxas names none
+        used = (f"used 1 barriers, {smem} bytes smem, " if smem else
+                "used 0 barriers, ")
+        out += f"""ptxas info    : Compiling entry function '{fn}' for 'sm_90a'
+ptxas info    : Function properties for {fn}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used {regs} registers, {used}400 bytes cmem[0]
+"""
     assert ptxas_kernels(out) == [
         "registers residual_init_kernel<4>: 80 registers, 26160 bytes smem, "
         "spills 8 / 4 bytes",
         "registers matvec_pap_kernel: 76 registers, 14000 bytes smem, "
-        "spills 0 / 0 bytes"]
+        "spills 0 / 0 bytes"] + [
+        f"registers {name}: {regs} registers, {smem} bytes smem, spills "
+        f"0 / 0 bytes" for _, name, regs, smem in glue]
