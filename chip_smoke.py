@@ -193,10 +193,10 @@ Phases (any failure exits non-zero; nothing is caught):
      launched there; verdicts, CG passes per case and launches per
      shape printed.
 
-  21. (after phase 4) the CG loop's graph route against the eager loop
-     (stencil._cg_loop with _eager) on the bench job and its maps
-     recipe: after a warm run, a graph run, an eager run and a graph
-     run under torch.profiler, each with the counters zeroed just before
+  21. (after phase 4) the CG loop's graph route against the same body
+     run directly (stencil._graph_route swapped off) on the bench job
+     and its maps recipe: after a warm run, a graph run, a direct run
+     and a graph run under torch.profiler, each with the counters zeroed just before
      it; the same CG iterations per refinement pass, each pair solve's X
      within 1e-6 relative per column, the same launches on both routes,
      and in the profiled run the launches counted equal to the trace's
@@ -1957,7 +1957,8 @@ class swapped:
 
 def graph_run(cfg, eager=False, profiled=False):
     """One run of cfg on the card with the launch counters zeroed just
-    before it, on the CG loop's graph route or (eager) the eager loop.
+    before it, on the CG loop's graph route or (eager) with the route
+    swapped off, the body run directly.
     Returns (seconds, stats.finalize(), launches (the seven's per wrapper
     and the glue kernels' per kernel), the X of every pair solve in
     order, the profiler's kernel count per name or None)."""
@@ -1975,13 +1976,13 @@ def graph_run(cfg, eager=False, profiled=False):
             return out
         return solve
 
-    def loop(real):
-        return (lambda *a, **k: real(*a, _eager=True, **k)) if eager else real
+    def route(real):
+        return (lambda B: False) if eager else real
 
     prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled else
             None)
     with swapped(st, "stencil_solve_pairs", keep), \
-            swapped(st, "_cg_loop", loop):
+            swapped(st, "_graph_route", route):
         torch.cuda.synchronize()
         cs.reset_launch_counts()
         t = time.perf_counter()
@@ -2009,9 +2010,10 @@ def graph_run(cfg, eager=False, profiled=False):
 
 def phase_graph(cfg):
     """Phase 21: the CG loop's graph route (one card's default) against
-    the eager loop (stencil._cg_loop's _eager), on the bench job and its
-    maps recipe: after a warm run, a graph run, an eager run, then a
-    graph run under torch.profiler.  The same CG iterations in every
+    the same body run directly (graph_run's eager: stencil._graph_route
+    swapped off), on the bench job and its maps recipe: after a warm
+    run, a graph run, a direct run, then a graph run under
+    torch.profiler.  The same CG iterations in every
     refinement pass, every pair solve's X within 1e-6 relative per
     column (2-norms), and in the profiled run the launches the wrappers
     counted equal to the trace's kernels of each name.  Returns the
@@ -2028,10 +2030,10 @@ def phase_graph(cfg):
         if g_st["pass_iters"] != e_st["pass_iters"]:
             raise AssertionError(
                 f"graph route {label}: CG iterations per pass "
-                f"{g_st['pass_iters']}, eager loop {e_st['pass_iters']}")
+                f"{g_st['pass_iters']}, direct run {e_st['pass_iters']}")
         if len(g_xs) != len(e_xs):
             raise AssertionError(f"graph route {label}: {len(g_xs)} pair "
-                                 f"solves, eager loop {len(e_xs)}")
+                                 f"solves, direct run {len(e_xs)}")
         worst = 0.0
         for xg, xe in zip(g_xs, e_xs):
             n = xe.flatten(1).norm(dim=1)
@@ -2040,10 +2042,10 @@ def phase_graph(cfg):
                                      .max()))
         if not worst <= 1e-6:
             raise AssertionError(f"graph route {label}: X differs from the "
-                                 f"eager loop's by {worst} relative")
+                                 f"direct run's by {worst} relative")
         if g_launch != e_launch or p_launch != kernels:
             raise AssertionError(
-                f"graph route {label}: launches {g_launch}, eager loop "
+                f"graph route {label}: launches {g_launch}, direct run "
                 f"{e_launch}; profiled run counted {p_launch}, the trace "
                 f"holds {kernels}")
         its = g_st["cg_iters"]

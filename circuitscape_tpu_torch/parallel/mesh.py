@@ -16,7 +16,9 @@ methods of solve/stencil.StencilOperator (matvec, cheb_step,
 residual_restrict, prolong_add, coarse_solve, node_flows, ...) and
 MeshBlock implements the few operations the CG loop and the V-cycle apply to
 blocks (elementwise arithmetic, torch.where, per-column broadcasts, the
-per-column sums), so those loop bodies stay the single-device ones:
+per-column sums, and the in-place and out= forms the loop's body
+writes its buffers with), so those loop bodies stay the single-device
+ones:
 
   - elementwise operations run part by part; a plain tensor operand is
     sliced to each part's rows and columns (a per-column (B, 1, 1)
@@ -228,7 +230,9 @@ class MeshBlock:
     groups (batched); a plane (H, W), or (1, H, W), has one column group
     held on every column's device (not batched).  Parts are never
     updated in place: on virtual shards a part may share storage with
-    another position's."""
+    another position's.  The in-place operations (copy_, add_, sub_,
+    zero_, and out= on a torch function) rebind the block's parts to
+    new tensors instead."""
 
     def __init__(self, mesh: Mesh, parts, batched: bool):
         self.mesh = mesh
@@ -390,9 +394,31 @@ class MeshBlock:
             out.append(acc)
         return torch.cat(out) if self.batched else out[0]
 
+    # in-place operations: the parts rebound, never written --------------
+    def copy_(self, src) -> "MeshBlock":
+        """This block's parts rebound to src's values in its dtype: a
+        block of this layout lends its parts (no part is written in
+        place, so they may be shared), a plain tensor is sliced to each
+        part."""
+        self.parts = MeshBlock.apply(lambda d, t: t.to(d.device, d.dtype),
+                                     self, src).parts
+        return self
+
+    def add_(self, other) -> "MeshBlock":
+        return self.copy_(self + other)
+
+    def sub_(self, other) -> "MeshBlock":
+        return self.copy_(self - other)
+
+    def zero_(self) -> "MeshBlock":
+        return self.copy_(torch.zeros_like(self))
+
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
+        kwargs = dict(kwargs or {})
+        out = kwargs.pop("out", None)
+        if out is not None:
+            return out.copy_(func(*args, **kwargs))
         if func is torch.sum:
             dim = kwargs.get("dim", args[1] if len(args) > 1 else None)
             if dim in _REDUCE_DIMS and not kwargs.get("keepdim"):
@@ -419,7 +445,8 @@ class MeshBlock:
 _OPS = ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__", "__rmul__",
         "__truediv__", "__rtruediv__", "__gt__", "__eq__")
 _ELEMENTWISE = {getattr(torch.Tensor, n) for n in _OPS} | {
-    torch.Tensor.to, torch.where, torch.zeros_like}
+    torch.Tensor.to, torch.where, torch.zeros_like, torch.empty_like,
+    torch.add, torch.sub}
 
 for _name in _OPS:
     def _op(self, other, _f=getattr(torch.Tensor, _name)):

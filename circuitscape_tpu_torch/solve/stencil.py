@@ -32,7 +32,6 @@ solvers hand back full tensors on the mesh's first device.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -43,6 +42,7 @@ import torch.nn.functional as F
 
 from .. import stats
 from ..timer import CSTIMER
+from . import cg_graph
 
 
 @dataclass
@@ -630,13 +630,12 @@ _FTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 class CGState(NamedTuple):
-    """The JAX loop carry: device blocks and per-column sums, plus the
-    host-side iteration count, stall detector and best residual (a numpy
-    scalar of B's float type, as JAX carries it)."""
+    """The loop's state between calls: device blocks and per-column sums,
+    plus the host-side iteration count, stall detector and best residual
+    (a numpy scalar of B's float type, as the JAX loop carries it)."""
 
     X: torch.Tensor
     R: torch.Tensor
-    Z: torch.Tensor
     P: torch.Tensor
     rz: torch.Tensor
     k: int
@@ -661,16 +660,6 @@ def _cg_improved(worst: np.floating, best: np.floating) -> bool:
     return bool(worst < best * type(best)(0.999))
 
 
-def _cg_state_init(A: StencilOperator, B: torch.Tensor, prec=None,
-                   prec_apply=None, pen=None, proj=None) -> CGState:
-    Z = _make_prec_apply(A, prec, prec_apply, pen, proj)(B)
-    R = B
-    # rn2 (per-column ||R||^2) rides the state so neither the loop
-    # condition nor the stall detector recomputes the reduction
-    return CGState(torch.zeros_like(B), R, Z, Z, _colsum(R * Z), 0,
-                   np.finfo(_FTYPE[B.dtype]).max, 0, _colsum(R * R))
-
-
 def _cg_stop(rn2, safe_bnorm, tol, out=None) -> torch.Tensor:
     """The loop's stop quantities [worst relative residual, any column
     above its target], stacked in worst's dtype (into out if given) so
@@ -683,13 +672,13 @@ def _cg_stop(rn2, safe_bnorm, tol, out=None) -> torch.Tensor:
 
 def _cg_iterate(step, fetch, k: int, best: np.floating, since: int,
                 k_stop: int, itmax: int):
-    """The host's side of the CG loop, shared by its two routes:
-    step(replace) runs iteration k on the device (replace: the periodic
-    true-residual replacement), fetch() returns the stop quantities of
-    the last iteration as [worst, active] (one sync).  Runs until
-    convergence, stall, divergence, itmax or k_stop, deciding in best's
-    float type as the JAX loop does (_cg_bounded, _cg_improved).
-    Returns (k, best, since)."""
+    """The host's side of the CG loop: step(replace) runs iteration k on
+    the device (replace: the periodic true-residual replacement),
+    fetch() returns the stop quantities of the last iteration as
+    [worst, active] (one sync).  Runs until convergence, stall,
+    divergence, itmax or k_stop, deciding in best's float type as the
+    JAX loop does (_cg_bounded, _cg_improved).  Returns (k, best,
+    since)."""
     ftype = type(best)
 
     def stop_quantities():
@@ -711,24 +700,20 @@ def _cg_iterate(step, fetch, k: int, best: np.floating, since: int,
     return k, best, since
 
 
-# the attribute of an operator that holds the graphs its loops keep
-GRAPH_SLOT = "_cg_graphs"
-
-
 def _graph_route(B) -> bool:
-    """Whether _cg_loop takes the graph route: B a plain tensor on a CUDA
-    device (one card's block).  CPU tensors and a mesh's MeshBlocks take
-    the eager loop."""
+    """Whether _cg_loop captures its iterations as CUDA graphs: B a plain
+    tensor on a CUDA device (one card's block).  CPU tensors and a
+    mesh's MeshBlocks run the same body directly."""
     return isinstance(B, torch.Tensor) and B.device.type == "cuda"
 
 
 def _cg_loop(A: StencilOperator, B: torch.Tensor, state, tol,
              safe_bnorm, k_stop: int, itmax: int, prec=None,
-             prec_apply=None, pen=None, proj=None, *,
-             _eager: bool = False) -> CGState:
+             prec_apply=None, pen=None, proj=None) -> CGState:
     """Preconditioned CG until convergence, stall, itmax, or k_stop (the
     per-call step budget of the chunked driver), from state (a CGState;
-    None: _cg_state_init's).
+    None: the JAX loop's initial carry, X = 0, R = B, P = M^-1 B, k = 0,
+    best the float type's max; k_stop 0 returns it).
 
     Every iteration computes its stop quantities on the device and
     fetches them in one host sync.  `since` detects a stall at the f32
@@ -736,79 +721,42 @@ def _cg_loop(A: StencilOperator, B: torch.Tensor, state, tol,
     past it (once the recurrence hits the floor, beta turns into
     amplified noise).  Both exits leave the outer f64 refinement to
     re-residualize.  Both guards compare in B's float type, as the JAX
-    loop does (_cg_iterate).  The matvec + p.Ap of the
-    body is one kernel (cuda_stencil.matvec_pap), as is the
-    true-residual replacement every 64 iterations (cuda_stencil.matvec).
-    Under a penalty field or a projector the body is the composite
-    Pi (L + pen) p (the matvec kernel, the penalty term, poly_project)
-    and a column dot, as in the JAX loop.  (On a mesh, matvec_pap is
-    the sharded matvec and the shard-ordered column sums, as the JAX
-    package's mesh loop is.)  On a plain float32 block with neither, the
-    rest of the body is the fused glue (_fused_step: cg_update_xr,
-    cg_dots, cg_update_p), written in place into the loop's own copies;
-    each iteration counts in stats fused_iters.
+    loop does (_cg_iterate).
 
-    A block on one card (_graph_route) takes the graph route: the same
-    operations in place on the route's buffers (_cg_step_), each body
-    captured once as a CUDA graph and replayed (solve/cg_graph.py); the
-    returned state's blocks are then those buffers, which the next loop
-    on the same operator writes over, and its Z is None.  CPU blocks, a
-    mesh's MeshBlocks and _eager (the tests' comparison) take the eager
-    loop below."""
+    The loop's state lives in a _CGBuffers that every iteration
+    (_cg_step_) writes in place, run through cg_graph.CGGraphs.run.  On
+    one card (_graph_route) each body is captured once as a CUDA graph
+    and replayed, and the buffers are kept on A for the solve's next
+    loop (cg_graph.graphs_for); the next loop on the same operator
+    writes over the returned state's blocks.  On the CPU and on a mesh
+    (whose MeshBlocks rebind their parts at each in-place op) the body
+    runs directly, on buffers of this call's own.  Records the
+    iterations replayed, the graphs captured and the iterations whose
+    body ran the fused glue (stats graph_replays, graph_captures,
+    fused_iters)."""
     apply_M = _make_prec_apply(A, prec, prec_apply, pen, proj)
-    if not _eager and _graph_route(B):
-        from .cg_graph import graphs_for
-        return _cg_loop_static(
-            A, B, state, tol, safe_bnorm, k_stop, itmax, apply_M,
-            graphs_for(A, B, tol, safe_bnorm, prec, prec_apply, pen, proj),
-            pen, proj)
-    if state is None:
-        state = _cg_state_init(A, B, prec, prec_apply, pen, proj)
-    X, R, Z, P, rz, k, best, since, rn2 = state
-    if _fused_body(B, safe_bnorm, pen, proj):
-        # the fused wrappers write in place: the loop's own copies (R and
-        # P of _cg_state_init's state are B and Z themselves)
-        X, R, P, rz, rn2 = (t.clone() for t in (X, R, P, rz, rn2))
-        stop = _cg_stop(rn2, safe_bnorm, tol)
-        k0 = k
-
-        def fused_step(replace):
-            nonlocal Z
-            Z = _fused_step(A, B, X, R, P, rz, rn2, safe_bnorm, tol, stop,
-                            replace, apply_M)
-
-        k, best, since = _cg_iterate(fused_step, stop.tolist, k, best,
-                                     since, k_stop, itmax)
-        stats.record(fused_iters=k - k0)
-        return CGState(X, R, Z, P, rz, k, best, since, rn2)
+    graphs = (cg_graph.graphs_for(A, B, tol, safe_bnorm, prec, prec_apply,
+                                  pen, proj, _CGBuffers)
+              if _graph_route(B) else
+              cg_graph.CGGraphs(_CGBuffers(B, tol, safe_bnorm)))
+    s = graphs.bufs
+    s.load(B, tol, safe_bnorm, state, apply_M)
+    k, best, since = ((0, np.finfo(_FTYPE[B.dtype]).max, 0) if state is None
+                      else (state.k, state.best, state.since))
+    k0 = k
+    replays, captures = graphs.replays, graphs.captures
 
     def step(replace):
-        nonlocal X, R, Z, P, rz, rn2
-        if pen is None and proj is None:
-            AP, pAp = A.matvec_pap(P)
-        else:
-            AP = _apply_op(A, P, pen, proj)
-            pAp = _colsum(P * AP)
-        alpha = torch.where(pAp > 0, rz / torch.where(pAp == 0, 1.0, pAp),
-                            0.0)
-        X = X + alpha[:, None, None] * P
-        if replace:
-            R = B - _apply_op(A, X, pen, proj)
-        else:
-            R = R - alpha[:, None, None] * AP
-        Z = apply_M(R)
-        rz_new = _colsum(R * Z)
-        beta = torch.where(rz > 0, rz_new / torch.where(rz == 0, 1.0, rz),
-                           0.0)
-        P = Z + beta[:, None, None] * P
-        rz = rz_new
-        rn2 = _colsum(R * R)
+        graphs.run(replace,
+                   lambda: _cg_step_(A, s, replace, apply_M, pen, proj))
 
-    k, best, since = _cg_iterate(
-        step, lambda: _cg_stop(rn2, safe_bnorm, tol).tolist(), k, best,
-        since, k_stop, itmax)
-    stats.record(fused_iters=0)
-    return CGState(X, R, Z, P, rz, k, best, since, rn2)
+    k, best, since = _cg_iterate(step, s.stop.tolist, k, best, since,
+                                 k_stop, itmax)
+    fused = _fused_body(B, safe_bnorm, pen, proj)
+    stats.record(graph_replays=graphs.replays - replays,
+                 graph_captures=graphs.captures - captures,
+                 fused_iters=k - k0 if fused else 0)
+    return CGState(s.X, s.R, s.P, s.rz, k, best, since, s.rn2)
 
 
 def _fused_body(B, safe_bnorm, pen=None, proj=None) -> bool:
@@ -823,14 +771,14 @@ def _fused_body(B, safe_bnorm, pen=None, proj=None) -> bool:
 
 
 def _fused_step(A, B, X, R, P, rz, rn2, safe_bnorm, tol, stop, replace,
-                apply_M):
+                apply_M) -> None:
     """One iteration of the plain body (no penalty field, no projector)
     through the fused glue wrappers, in place on X, R, P, rz, rn2 and stop
     (_cg_stop's quantities): matvec_pap, cg_update_xr (the residual
     replacement's R = B - A X by the matvec kernel), the preconditioner,
     cg_dots and cg_update_p.  The same operations as the composite body,
     each product and sum rounded as it rounds them; only the column sums
-    add in another order on the card.  Returns Z."""
+    add in another order on the card."""
     from .cuda_stencil import cg_dots, cg_update_p, cg_update_xr
     AP, pAp = A.matvec_pap(P)
     cg_update_xr(X, R, P, AP, rz, pAp, replace)
@@ -839,21 +787,20 @@ def _fused_step(A, B, X, R, P, rz, rn2, safe_bnorm, tol, stop, replace,
         torch.sub(B, A.matvec(X), out=R)
     Z = apply_M(R)
     cg_update_p(P, Z, cg_dots(R, Z, rz, rn2, safe_bnorm, tol, stop))
-    return Z
 
 
 class _CGBuffers:
-    """The graph route's loop state, in storage that every iteration
-    writes in place (a replayed graph reads and writes the addresses it
-    was captured on): the right-hand side, targets (in float64) and
-    column norms the loop reads (B, tol, safe), the iterate, residual
-    and search direction (X, R, P), their column sums rz = R.Z and
+    """The CG loop's state, in storage that every iteration writes in
+    place (a replayed graph reads and writes the addresses it was
+    captured on): the right-hand side, targets (in float64) and column
+    norms the loop reads (B, tol, safe), the iterate, residual and
+    search direction (X, R, P), their column sums rz = R.Z and
     rn2 = R.R, and the last iteration's stop quantities (stop,
-    _cg_stop).  Z, the preconditioned
-    residual, is not carried from one iteration to the next, so it has
-    no buffer: an iteration's Z lives in the graph's own memory.  B is
-    the right-hand side the buffers were made for: a later loop's is
-    copied into it, unless the caller wrote it there."""
+    _cg_stop).  Z, the preconditioned residual, is not carried from one
+    iteration to the next, so it has no buffer: an iteration's Z lives
+    in the graph's own memory.  B is the right-hand side the buffers
+    were made for: a later loop's is copied into it, unless the caller
+    wrote it there.  B may be a tensor or a mesh's MeshBlock."""
 
     def __init__(self, B: torch.Tensor, tol, safe_bnorm: torch.Tensor):
         tol = torch.as_tensor(tol, device=B.device)
@@ -863,16 +810,18 @@ class _CGBuffers:
         # as against its float64 value, and cg_dots takes float64 targets
         self.tol = torch.empty_like(tol, dtype=torch.float64)
         self.safe = torch.empty_like(safe_bnorm)
-        self.rz = B.new_empty(B.shape[0])
-        self.rn2 = B.new_empty(B.shape[0])
-        self.stop = B.new_empty(2, dtype=torch.promote_types(
-            B.dtype, safe_bnorm.dtype))
+        self.rz, self.rn2 = (torch.empty(B.shape[0], dtype=B.dtype,
+                                         device=B.device) for _ in range(2))
+        self.stop = torch.empty(2, dtype=torch.promote_types(
+            B.dtype, safe_bnorm.dtype), device=B.device)
 
     def load(self, B, tol, safe_bnorm, state, apply_M) -> None:
         """Copy a loop's inputs and its state into the buffers, each
         unless it is that buffer already, and set stop.  The state is a
-        CGState, or with state None _cg_state_init's (X = 0, R = B,
-        P = Z = M^-1 B, rz, rn2)."""
+        CGState, or with state None the initial one (X = 0, R = B,
+        P = Z = M^-1 B, rz = R.Z, rn2 = R.R: rn2 rides the state so
+        neither the loop condition nor the stall detector recomputes
+        the reduction)."""
         pairs = [(self.B, B), (self.tol, torch.as_tensor(tol)),
                  (self.safe, safe_bnorm)]
         if state is None:
@@ -894,12 +843,17 @@ class _CGBuffers:
 
 def _cg_step_(A: StencilOperator, s: _CGBuffers, replace: bool, apply_M,
               pen=None, proj=None) -> None:
-    """One iteration of _cg_loop's body on s, in place: the same
-    operations in the same order, with X, R, P, rz and rn2 written into
-    their buffers (the same bits as the eager loop) and the stop
-    quantities into s.stop.  replace: the true-residual replacement
-    R = B - A X.  Without a penalty field or a projector on a float32
-    block, the fused glue (_fused_step)."""
+    """One iteration of _cg_loop's body on s, in place: X, R, P, rz and
+    rn2 written into their buffers and the stop quantities into s.stop.
+    replace: the true-residual replacement R = B - A X.  The matvec +
+    p.Ap of the body is one kernel (cuda_stencil.matvec_pap), as is the
+    replacement's matvec (cuda_stencil.matvec).  Under a penalty field
+    or a projector the body is the composite Pi (L + pen) p (the matvec
+    kernel, the penalty term, poly_project) and a column dot, as in the
+    JAX loop.  (On a mesh, matvec_pap is the sharded matvec and the
+    shard-ordered column sums, as the JAX package's mesh loop is.)
+    Without a penalty field or a projector on a float32 block, the
+    fused glue (_fused_step)."""
     if _fused_body(s.B, s.safe, pen, proj):
         _fused_step(A, s.B, s.X, s.R, s.P, s.rz, s.rn2, s.safe, s.tol,
                     s.stop, replace, apply_M)
@@ -925,47 +879,6 @@ def _cg_step_(A: StencilOperator, s: _CGBuffers, replace: bool, apply_M,
     s.rz.copy_(rz_new)
     torch.sum(s.R * s.R, dim=(-2, -1), out=s.rn2)
     _cg_stop(s.rn2, s.safe, s.tol, out=s.stop)
-
-
-@contextlib.contextmanager
-def _graph_scope(A):
-    """The graph route's graphs kept on A (cg_graph.graphs_for) last
-    until the end of this block, one solve: its refinement passes share
-    them, and they go, with their buffers and memory pool, when it
-    returns."""
-    try:
-        yield
-    finally:
-        A.__dict__.pop(GRAPH_SLOT, None)
-
-
-def _cg_loop_static(A, B, state, tol, safe_bnorm, k_stop: int, itmax: int,
-                    apply_M, graphs, pen=None, proj=None) -> CGState:
-    """_cg_loop's graph route: the loop's state in graphs.bufs (a
-    _CGBuffers), each iteration graphs.run on _cg_step_ (a replayed
-    graph once captured, solve/cg_graph.py), the host's decisions those
-    of the eager loop (_cg_iterate).  Records the iterations replayed
-    and the graphs captured (stats graph_replays, graph_captures), and
-    the iterations whose body ran the fused glue (stats fused_iters).
-    The returned state has no Z (_CGBuffers)."""
-    s = graphs.bufs
-    s.load(B, tol, safe_bnorm, state, apply_M)
-    k, best, since = ((0, np.finfo(_FTYPE[B.dtype]).max, 0) if state is None
-                      else (state.k, state.best, state.since))
-    k0 = k
-    replays, captures = graphs.replays, graphs.captures
-
-    def step(replace):
-        graphs.run(replace,
-                   lambda: _cg_step_(A, s, replace, apply_M, pen, proj))
-
-    k, best, since = _cg_iterate(step, s.stop.tolist, k, best, since,
-                                 k_stop, itmax)
-    fused = _fused_body(B, safe_bnorm, pen, proj)
-    stats.record(graph_replays=graphs.replays - replays,
-                 graph_captures=graphs.captures - captures,
-                 fused_iters=k - k0 if fused else 0)
-    return CGState(s.X, s.R, None, s.P, s.rz, k, best, since, s.rn2)
 
 
 def _true_relres(A, B, X, safe_bnorm, proj=None):
@@ -1155,7 +1068,7 @@ def _fused_pair_solve(S64, src_cells, dst_cells, point_cells, rtol, itmax,
     else:
         A_lo = _to_dtype(S64, torch.float32)
 
-    with _graph_scope(A_lo):
+    with cg_graph.graph_scope(A_lo):
         X, rel_d, total_iters = _solve_pairs_fused(
             S64, A_lo, prec, prec_apply, sc, dc, pc, rtol, itmax, proj)
         rel = rel_d.cpu().numpy()
@@ -1278,7 +1191,7 @@ def stencil_solve_advanced_batch(S64: StencilOperator, src_cells, src_vals,
     R32 = None
     total_iters = 0
     rel = np.full(B_rhs.shape[0], np.inf)
-    with _graph_scope(A_lo):
+    with cg_graph.graph_scope(A_lo):
         for pass_i in range(max_refine):
             with CSTIMER.span("refinement pass"):
                 # floor-safe inner tolerances: never ask an f32 pass for

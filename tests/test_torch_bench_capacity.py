@@ -19,6 +19,7 @@ import jax
 
 import bench_capacity_torch as bct
 import chip_smoke
+from child_env import one_thread
 import circuitscape_tpu as cs
 import circuitscape_tpu_torch as cst
 from circuitscape_tpu import stats as jstats
@@ -232,7 +233,8 @@ def test_no_card_exits_2(tmp_path):
         pytest.skip("a CUDA device is present")
     out = subprocess.run([sys.executable, "bench_capacity_torch.py", "--out",
                           str(tmp_path / "x.json")], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         env=one_thread(), capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 2 and out.stdout == ""
     assert not (tmp_path / "x.json").exists()
     with pytest.raises(SystemExit) as e:

@@ -24,6 +24,7 @@ import bench_suite
 import bench_suite_torch as bst
 import circuitscape_tpu as cs
 import circuitscape_tpu_torch as cst
+from child_env import one_thread
 from circuitscape_tpu.solve.stencil import stencil_from_gmap
 
 # one intra-op thread: the suite runs in several pytest-xdist workers at
@@ -250,9 +251,9 @@ def test_suite_runs_on_the_cpu(tmp_path):
     JSON line per record with bench_suite.py's keys and two runs' stats,
     the output file holding the same records."""
     out = tmp_path / "suite.json"
-    env = dict(os.environ, CS_SUITE_SIZES="40",
-               CS_SUITE_SCENARIOS="shortcut,maps,advanced",
-               **dict.fromkeys(DEVICE_PATH, "1"))
+    env = one_thread(CS_SUITE_SIZES="40",
+                     CS_SUITE_SCENARIOS="shortcut,maps,advanced",
+                     **dict.fromkeys(DEVICE_PATH, "1"))
     env.pop("CS_SUITE_APPEND", None)
     p = subprocess.run([sys.executable, "bench_suite_torch.py", "--device",
                         "cpu", "--out", str(out)], cwd=ROOT, env=env,

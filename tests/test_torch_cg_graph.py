@@ -1,13 +1,13 @@
-"""The stencil CG loop's graph route (stencil._cg_loop_static,
-solve/cg_graph.py) on the CPU: its in-place iteration body gives the eager
-loop's bits, the route follows the block's device and type, a replayed
-graph's kernel launches count once per replay and never for the capture,
-graphs are kept per operator only where they may be replayed again, and
-the benchmark's solve.graph_iter_pct reads the counters; the body without
-a penalty field or projector goes through the fused glue wrappers, whose
+"""The stencil CG loop (stencil._cg_loop, solve/cg_graph.py) on the CPU:
+run in two calls from its returned state it gives one call's bits, the
+graph route follows the block's device and type, a replayed graph's
+kernel launches count once per replay and never for the capture, graphs
+are kept per operator only where they may be replayed again, and the
+benchmark's solve.graph_iter_pct reads the counters; the body without a
+penalty field or projector goes through the fused glue wrappers, whose
 iterations count in stats fused_iters (read by solve.fused_iter_pct) and
-whose launches count apart from the seven kernels'.  One test,
-marked `cuda`, holds the route against the eager loop on the card
+whose launches count apart from the seven kernels'.  One test, marked
+`cuda`, holds the graph route against the body run directly on the card
 (chip_smoke.phase_graph); it skips here.  This file imports neither JAX
 nor circuitscape_tpu."""
 
@@ -75,30 +75,33 @@ def _case(body, mismatch=4.0):
 
 
 @pytest.mark.parametrize("body", ["plain", "pen", "proj"])
-def test_inplace_body_matches_eager_loop(body):
-    """The graph route's loop run eagerly (no capture) on the CPU against
-    the eager loop, in two calls as the chunked driver makes them (to
-    k = 40 from the initial state, then to 70 from the returned one, past
-    the residual replacement at 64): the same k, best and since, and the
-    same bits in X, R, P, rz and rn2."""
+def test_loop_resumes_from_its_state(body):
+    """The loop on the CPU in two calls, as the chunked driver makes them
+    (to k = 40 from the initial state, then to 70 from the returned one,
+    past the residual replacement at 64), against one call to 70: the
+    same k, best and since, and the same bits in X, R, P, rz and rn2;
+    no graph replayed or captured off the card."""
     A, B, prec, prec_apply, pen, proj = _case(body)
     bnorm = torch.sqrt(tst._colsum(B * B))
     safe = torch.where(bnorm == 0, 1.0, bnorm)
     tol = torch.zeros_like(bnorm)
-    apply_M = tst._make_prec_apply(A, prec, prec_apply, pen, proj)
-    graphs = cg_graph.CGGraphs(tst._CGBuffers(B, tol, safe))
-    eager = static = None
-    for k_stop in (40, 70):
-        eager = tst._cg_loop(A, B, eager, tol, safe, k_stop, 1000, prec,
-                             prec_apply, pen, proj)
-        static = tst._cg_loop_static(A, B, static, tol, safe, k_stop, 1000,
-                                     apply_M, graphs, pen, proj)
-        assert static.k == eager.k == k_stop
-        assert static.since == eager.since
-        assert type(static.best) is np.float32 and static.best == eager.best
-        for f in ("X", "R", "P", "rz", "rn2"):
-            assert torch.equal(getattr(static, f), getattr(eager, f)), f
-    assert graphs.replays == graphs.captures == 0
+
+    def loop(state, k_stop):
+        return tst._cg_loop(A, B, state, tol, safe, k_stop, 1000, prec,
+                            prec_apply, pen, proj)
+    stats.reset()
+    try:
+        whole = loop(None, 70)
+        resumed = loop(loop(None, 40), 70)
+        job = stats.finalize()
+    finally:
+        stats.reset()
+    assert resumed.k == whole.k == 70
+    assert resumed.since == whole.since
+    assert type(resumed.best) is np.float32 and resumed.best == whole.best
+    for f in ("X", "R", "P", "rz", "rn2"):
+        assert torch.equal(getattr(resumed, f), getattr(whole, f)), f
+    assert (job["graph_replays"], job["graph_captures"]) == (0, 0)
 
 
 def test_route_follows_the_block():
@@ -114,7 +117,8 @@ def test_route_follows_the_block():
 
 
 def test_cpu_solve_asks_for_no_graphs(monkeypatch):
-    """A solve on CPU tensors takes the eager loop, never the graphs."""
+    """A solve on CPU tensors runs the body directly, never asking for
+    the graphs."""
     def refuse(*a, **k):
         raise AssertionError("graphs asked for on the CPU")
     monkeypatch.setattr(cg_graph, "graphs_for", refuse)
@@ -143,7 +147,7 @@ class _Graph:
 
 
 def test_replays_count_launches_captures_do_not():
-    """A body that launches three kernels, run five times: once eagerly
+    """A body that launches three kernels, run five times: once directly
     (its launches counted by the wrappers), then captured (its launches
     taken back out) and replayed four times (added at each replay).  The
     three counters end at five iterations' launches, no entry at zero;
@@ -185,25 +189,27 @@ def test_replays_count_launches_captures_do_not():
     cuda_stencil.reset_launch_counts()
 
 
-def test_loop_records_replays():
-    """_cg_loop_static records the iterations it replayed and the graphs
-    it captured in the job's stats.  Iteration 0 runs eagerly, iteration
-    1 is captured (the stand-in's capture runs the body on the CPU) and
-    replayed; the stand-in's replays run nothing, so from there the stop
-    quantities stand still and the stall detector ends the loop 50
-    replays later."""
+def test_loop_records_replays(monkeypatch):
+    """The loop on the graph route (here with a stand-in graph type)
+    records the iterations it replayed and the graphs it captured in
+    the job's stats.  Iteration 0 runs directly, iteration 1 is captured
+    (the stand-in's capture runs the body on the CPU) and replayed; the
+    stand-in's replays run nothing, so from there the stop quantities
+    stand still and the stall detector ends the loop 50 replays
+    later."""
+    monkeypatch.setattr(tst, "_graph_route", lambda B: True)
+    monkeypatch.setattr(cg_graph.CGGraphs, "on_card", classmethod(
+        lambda cls, bufs: cls(bufs, _Graph, SimpleNamespace(
+            stream=None, pool=None, last=None))))
     A, B, prec, prec_apply, _, _ = _case("plain")
     bnorm = torch.sqrt(tst._colsum(B * B))
     safe = torch.where(bnorm == 0, 1.0, bnorm)
     tol = torch.zeros_like(bnorm)
-    apply_M = tst._make_prec_apply(A, prec, prec_apply)
-    graphs = cg_graph.CGGraphs(
-        tst._CGBuffers(B, tol, safe), _Graph,
-        SimpleNamespace(stream=None, pool=None, last=None))
     stats.reset()
     try:
-        st = tst._cg_loop_static(A, B, None, tol, safe, 70, 70, apply_M,
-                                 graphs)
+        with cg_graph.graph_scope(A):
+            st = tst._cg_loop(A, B, None, tol, safe, 70, 70, prec,
+                              prec_apply)
         job = stats.finalize()
     finally:
         stats.reset()
@@ -219,7 +225,8 @@ def _variants(A, B, prec, prec_apply):
     for b, p, pa, pn in ((B, prec, prec_apply, pen), (B, None, None, None),
                          (B[:1], prec, prec_apply, None)):
         t = torch.ones(b.shape[0])
-        yield cg_graph.graphs_for(A, b, t, t, p, pa, pn, None)
+        yield cg_graph.graphs_for(A, b, t, t, p, pa, pn, None,
+                                  tst._CGBuffers)
 
 
 def test_graphs_kept_on_the_operator(monkeypatch):
@@ -236,7 +243,8 @@ def test_graphs_kept_on_the_operator(monkeypatch):
     one = torch.ones(B.shape[0])
 
     def graphs(p=prec):
-        return cg_graph.graphs_for(A, B, one, one, p, prec_apply, None, None)
+        return cg_graph.graphs_for(A, B, one, one, p, prec_apply, None,
+                                   None, tst._CGBuffers)
 
     first = graphs()
     assert graphs() is first
@@ -245,7 +253,7 @@ def test_graphs_kept_on_the_operator(monkeypatch):
     assert kept is not first and graphs() is kept
     _, _, other, _ = _hierarchy(32, 5, 0.0)
     assert graphs(other) is not kept
-    with tst._graph_scope(A):        # one solve: kept until it returns
+    with cg_graph.graph_scope(A):    # one solve: kept until it returns
         kept = graphs()
         assert graphs() is kept
     assert graphs() is not kept
@@ -349,7 +357,7 @@ def test_fused_step_matches_composite_body():
     safe = torch.where(bnorm == 0, 1.0, bnorm)
     tol = 1e-3 * bnorm
     apply_M = tst._make_prec_apply(A, prec, prec_apply)
-    st = tst._cg_state_init(A, B, prec, prec_apply)
+    st = tst._cg_loop(A, B, None, tol, safe, 0, 0, prec, prec_apply)
     for replace in (False, True):
         X, R, P, rz, rn2 = (t.clone() for t in (st.X, st.R, st.P, st.rz,
                                                 st.rn2))
@@ -443,8 +451,9 @@ def test_fused_iter_pct_reads_the_counters():
 
 @pytest.mark.cuda
 def test_graph_route_on_card(tmp_path):
-    """The graph route against the forced eager loop on the card, on the
-    bench job and its maps recipe at 1M cells: chip_smoke.phase_graph
+    """The graph route against the body run directly on the card (the
+    route swapped off), on the bench job and its maps recipe at 1M
+    cells: chip_smoke.phase_graph
     (the same CG iterations per pass, X within 1e-6 relative per column,
     launch counts equal to the profiler's kernel counts)."""
     if not torch.cuda.is_available():

@@ -21,6 +21,7 @@ import torch
 import golden_utils
 import torch_golden as tg
 from chip_smoke import make_job
+from child_env import one_thread
 
 torch.set_num_threads(1)
 
@@ -183,7 +184,7 @@ def test_make_job_is_bench_inputs(tmp_path):
 def test_bench_torch_line_on_cpu():
     """bench_torch.py --device cpu at 200 x 200 and 4 points: exit 0 and
     one JSON line on stdout with every field, the replay 12/12."""
-    env = dict(os.environ, CS_BENCH_SIZE="200", CS_BENCH_POINTS="4")
+    env = one_thread(CS_BENCH_SIZE="200", CS_BENCH_POINTS="4")
     out = subprocess.run([sys.executable, "bench_torch.py", "--device",
                           "cpu"], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=600)
@@ -210,7 +211,8 @@ def test_scripts_need_a_card(script):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     out = subprocess.run([sys.executable, script], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         env=one_thread(), capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 2, out.stderr[-2000:]
     assert out.stdout == ""
     assert "no CUDA device" in out.stderr

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from child_env import one_thread
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "circuitscape_tpu_torch")
 
@@ -43,7 +45,8 @@ def test_import_leaves_jax_out():
         "m.startswith('circuitscape_tpu.')]\n"
         "print('LOADED', bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         env=one_thread(), capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LOADED []" in out.stdout, out.stdout
 
@@ -59,7 +62,8 @@ def test_golden_replay_leaves_jax_out():
         "m.startswith('circuitscape_tpu.') or m == 'golden_utils']\n"
         "print('LOADED', bad, rc)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=600)
+                         env=one_thread(), capture_output=True, text=True,
+                         timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LOADED [] 0" in out.stdout, out.stdout
 

@@ -172,6 +172,41 @@ def test_mesh_block_layout_and_sums(vmesh):
         torch.matmul(b, b)
 
 
+def test_mesh_block_inplace_ops_rebind(vmesh):
+    """The in-place forms the CG body writes its buffers with (copy_,
+    add_, sub_, zero_, out= on torch.add, torch.sub and torch.sum,
+    torch.empty_like): each rebinds the block's parts to new tensors,
+    never writing a part, and gives the out-of-place op's values."""
+    mesh = tm.make_mesh(8)
+    rng = np.random.default_rng(2)
+    x, y = (torch.as_tensor(rng.standard_normal((8, 32, 10)),
+                            dtype=torch.float32) for _ in range(2))
+    a = torch.as_tensor(rng.random(8), dtype=torch.float32)
+    bx, by = tm.shard_rhs(mesh, x), tm.shard_rhs(mesh, y)
+    e = torch.empty_like(bx)
+    assert isinstance(e, tm.MeshBlock) and e.shape == bx.shape
+    for op, ref in (
+            (lambda b: b.copy_(by), y),
+            (lambda b: b.add_(a[:, None, None] * by),
+             x + a[:, None, None] * y),
+            (lambda b: b.sub_(by), x - y),
+            (lambda b: b.zero_(), torch.zeros_like(x)),
+            (lambda b: torch.add(by, 2.0 * b, out=b), y + 2.0 * x),
+            (lambda b: torch.sub(by, b, out=b), y - x),
+            (lambda b: b.copy_(x.double()), x)):
+        b = tm.shard_rhs(mesh, x)
+        before = [t for row in b.parts for t in row]
+        kept = [t.clone() for t in before]
+        assert op(b) is b
+        after = [t for row in b.parts for t in row]
+        assert all(t is not u for t, u in zip(after, before))
+        assert all(torch.equal(t, u) for t, u in zip(before, kept))
+        torch.testing.assert_close(b.gather(), ref, rtol=0, atol=0)
+    out = torch.empty(8)
+    assert torch.sum(bx * bx, dim=(-2, -1), out=out) is out
+    torch.testing.assert_close(out, (bx * bx).colsum(), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_shard_matvec_matches_single_device_and_jax(vmesh, dtype):
     """The halo-exchange matvec equals the single-device stencil matvec

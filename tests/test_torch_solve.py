@@ -145,8 +145,15 @@ def test_cg_guards_decide_as_jax(worst, best):
 def test_cg_state_carries_best_in_float32():
     A = tst.stencil_from_gmap_device(torch.ones((4, 5)), False, False)
     A = tst._to_dtype(A, torch.float32)
-    st = tst._cg_state_init(A, torch.ones((2, 4, 5)))
+    st = _port_state_init(A, torch.ones((2, 4, 5)))
     assert type(st.best) is F32 and st.best == F32_MAX
+
+
+def _port_state_init(A, B):
+    """The port's initial loop state: _cg_loop from none, to k = 0
+    (Jacobi, tol 0, safe_bnorm 1)."""
+    one = torch.ones(B.shape[0])
+    return tst._cg_loop(A, B, None, torch.zeros_like(one), one, 0, 1000)
 
 
 _LOOP_G = np.random.default_rng(5).uniform(0.5, 3.0, (6, 7))
@@ -154,7 +161,7 @@ _LOOP_B = np.random.default_rng(6).standard_normal((1, 6, 7)).astype(F32)
 
 
 def _run_cg_loop(pkg, k_stop, rn2_scale=F32(1.0), best=None, s=F32(1.0)):
-    """One package's _cg_state_init and _cg_loop on the same float32
+    """One package's initial state and _cg_loop on the same float32
     operator and one-column B, Jacobi-preconditioned, tol 0 (never
     converged): the state's rn2 times rn2_scale, its best replaced by
     best if given, safe_bnorm s.  Returns (k, best, since, rn2)."""
@@ -172,8 +179,8 @@ def _run_cg_loop(pkg, k_stop, rn2_scale=F32(1.0), best=None, s=F32(1.0)):
     A = tst._to_dtype(tst.stencil_from_gmap_device(
         torch.as_tensor(_LOOP_G), False, False), torch.float32)
     B = torch.as_tensor(_LOOP_B)
-    st = tst._cg_state_init(A, B)
-    assert type(st.best) is F32 and st.best == F32_MAX
+    st = _port_state_init(A, B)
+    assert st.k == 0 and type(st.best) is F32 and st.best == F32_MAX
     st = st._replace(rn2=st.rn2 * float(rn2_scale),
                      best=st.best if best is None else best)
     out = tst._cg_loop(A, B, st, 0.0, torch.tensor([s]), k_stop, 1000)
@@ -201,7 +208,7 @@ def _stall_edge(pkg):
 @pytest.mark.parametrize("case", ["inf_first_worst", "at_stall_threshold",
                                   "above_stall_threshold"])
 def test_cg_loop_decides_as_jax(case):
-    """Both packages' _cg_state_init and _cg_loop, driven on the guards'
+    """Both packages' initial states and _cg_loop, driven on the guards'
     edge values, stop at the same k with the same since and best: a
     first worst of inf (float32 best * 8 overflows, so JAX goes on), a
     worst at the float32 stall threshold of best (not improved), and

@@ -19,6 +19,7 @@ import torch
 
 import circuitscape_tpu_torch as cst
 from chip_smoke import make_job
+from child_env import one_thread
 from circuitscape_tpu_torch import stats
 from circuitscape_tpu_torch.solve import cuda_stencil
 from circuitscape_tpu_torch.timer import MAX_SPANS, Timer
@@ -270,8 +271,8 @@ def test_span_report_needs_a_card():
         pytest.skip("a CUDA device is present")
     out = subprocess.run([sys.executable, "span_report.py", "--workload",
                           "testarea1_1M.resistances", "--seed", "1"],
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=300)
+                         cwd=ROOT, env=one_thread(), capture_output=True,
+                         text=True, timeout=300)
     assert out.returncode == 2 and out.stdout == ""
 
 
